@@ -1,0 +1,262 @@
+"""SQP solver with l1-merit line search, batch-first — the port of
+``sqp_solve`` in polympc_tpu/nlp/sqp.py.
+
+Every lane solves its own NLP from its own start point.  One iteration:
+exact (or Gauss-Newton) Lagrangian Hessian, regularised (nlp/hessian.py);
+the QP subproblem in the step with bounds shifted by the iterate, solved by
+boxADMM dual-warm-started with the current multipliers; a fixed ladder of
+``ls_max_iter`` trial step lengths tau^i evaluated for every lane at once,
+of which the first that meets the l1-merit Armijo test is taken (with the
+JAX package's two-tier fallback); then one first-order evaluation at the
+new point serves the termination test and the next linearisation.
+
+A lane stops once its termination test passes or after ``max_iter``
+iterations; the lanes still running are gathered into a smaller batch for
+the next iteration, so each lane stops at the iteration it would stop at
+alone (the JAX package freezes finished lanes under ``vmap`` instead).
+The quasi-Newton Hessians, the filter line search and the per-iteration
+trace are not in this slice.
+"""
+from __future__ import annotations
+
+import torch
+from torch.func import grad, jacrev, vmap
+
+from polympc_torch.nlp.hessian import regularize
+from polympc_torch.nlp.types import NLP, NLPBounds, SQPSettings, SQPSolution
+from polympc_torch.qp.box_admm import box_admm_solve
+from polympc_torch.qp.types import QPData
+from polympc_torch.utils import status as st
+from polympc_torch.utils.precision import full_precision
+
+__all__ = ["sqp_solve"]
+
+
+def _inf_norm(v):
+    if v.shape[-1] == 0:
+        return v.new_zeros(v.shape[:-1])
+    return torch.amax(torch.abs(v), dim=-1)
+
+
+def _mv(A, v):
+    return (A @ v[..., None])[..., 0]
+
+
+def _constraints(nlp: NLP, x, p):
+    """Stacked general constraints c(x) = [c_e; c_i], (B, ne+ni)."""
+    parts = []
+    if nlp.eq is not None:
+        parts.append(nlp.eq(x, p))
+    if nlp.ineq is not None:
+        parts.append(nlp.ineq(x, p))
+    return torch.cat(parts, dim=-1) if parts else x.new_zeros(
+        (x.shape[0], 0))
+
+
+def _lane(fn):
+    """A batch-first callable (B, n) -> (B, ...) as a one-lane function."""
+    return lambda xi, *a: fn(xi[None], *(v[None] for v in a))[0]
+
+
+def derivative_fns(nlp: NLP, p):
+    """(grad, jac) callables on (B, n): the NLP's structured hooks where it
+    has them, per-lane ``torch.func`` otherwise."""
+    if nlp.cost_grad is not None:
+        grad_fn = lambda x: nlp.cost_grad(x, p)
+    else:
+        grad_fn = vmap(grad(_lane(lambda x: nlp.cost(x, p))))
+
+    def jac_fn(x):
+        parts = []
+        if nlp.eq is not None:
+            parts.append(nlp.eq_jac(x, p) if nlp.eq_jac is not None else
+                         vmap(jacrev(_lane(lambda v: nlp.eq(v, p))))(x))
+        if nlp.ineq is not None:
+            parts.append(nlp.ineq_jac(x, p) if nlp.ineq_jac is not None else
+                         vmap(jacrev(_lane(lambda v: nlp.ineq(v, p))))(x))
+        return torch.cat(parts, dim=1) if parts else x.new_zeros(
+            (x.shape[0], 0, nlp.n))
+    return grad_fn, jac_fn
+
+
+def _row_bounds(nlp: NLP, bounds: NLPBounds, B, dt):
+    z = torch.zeros((B, nlp.ne), dtype=dt, device=bounds.gl.device)
+    cl = torch.cat([z, bounds.gl.to(dt).expand(B, nlp.ni)], dim=1)
+    cu = torch.cat([z, bounds.gu.to(dt).expand(B, nlp.ni)], dim=1)
+    return cl, cu
+
+
+def _violation_l1(c, cl, cu, x, lbx, ubx):
+    """l1 constraint violation for the merit function
+    (ref: sqp_base.hpp:423-474), summed over the last axis."""
+    vc = torch.sum(torch.clamp(c - cu, min=0.0) + torch.clamp(cl - c, min=0.0),
+                   dim=-1)
+    vx = torch.sum(torch.clamp(x - ubx, min=0.0)
+                   + torch.clamp(lbx - x, min=0.0), dim=-1)
+    return vc + vx
+
+
+def _violation_inf(c, cl, cu, x, lbx, ubx):
+    vc = _inf_norm(torch.clamp(torch.maximum(c - cu, cl - c), min=0.0))
+    vx = _inf_norm(torch.clamp(torch.maximum(x - ubx, lbx - x), min=0.0))
+    return torch.maximum(vc, vx)
+
+
+@full_precision()
+def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
+              lam0=None, lam_box0=None,
+              settings: SQPSettings = SQPSettings()) -> SQPSolution:
+    """Solve a batch of NLPs from start points x0 (B, n).
+
+    p: parameter dict forwarded to every problem callable (shared by all
+    lanes).  bounds: each tensor (n,)/(ni,) shared, or (B, n)/(B, ni) per
+    lane.  lam0 (B, m), lam_box0 (B, n): optional dual warm starts.
+    """
+    if not settings.validate():
+        raise ValueError("invalid SQP settings")
+    if settings.hessian not in ("exact", "gauss_newton"):
+        raise NotImplementedError(
+            f"hessian={settings.hessian!r}: the quasi-Newton modes are "
+            "ported in slice 3")
+    if settings.line_search != "merit":
+        raise NotImplementedError("the filter line search is ported in "
+                                  "slice 3")
+    if settings.trace_iters:
+        raise NotImplementedError("the per-iteration trace is ported in "
+                                  "slice 3")
+    B, n = x0.shape
+    m = nlp.m
+    dt, dev = x0.dtype, x0.device
+    if bounds is None:
+        inf = float("inf")
+        bounds = NLPBounds(
+            lbx=torch.full((n,), -inf, dtype=dt, device=dev),
+            ubx=torch.full((n,), inf, dtype=dt, device=dev),
+            gl=torch.full((nlp.ni,), -inf, dtype=dt, device=dev),
+            gu=torch.full((nlp.ni,), inf, dtype=dt, device=dev))
+    lbx = bounds.lbx.to(dt).expand(B, n)
+    ubx = bounds.ubx.to(dt).expand(B, n)
+    cl, cu = _row_bounds(nlp, bounds, B, dt)
+
+    cost_fn = lambda x: nlp.cost(x, p)
+    con_fn = lambda x: _constraints(nlp, x, p)
+    grad_fn, jac_fn = derivative_fns(nlp, p)
+    if settings.hessian == "gauss_newton":
+        if nlp.gn_hessian is None:
+            raise ValueError("hessian='gauss_newton' requires nlp.gn_hessian")
+        hess_fn = lambda x, lam: nlp.gn_hessian(x, p)
+    elif nlp.lag_hessian is not None:
+        hess_fn = lambda x, lam: nlp.lag_hessian(x, lam, p)
+    else:
+        def lagr(xi, li):
+            val = nlp.cost(xi[None], p)[0]
+            if m:
+                val = val + _constraints(nlp, xi[None], p)[0] @ li
+            return val
+        hess_fn = vmap(jacrev(grad(lagr)))
+
+    L = settings.ls_max_iter
+    alphas = settings.tau ** torch.arange(L, dtype=dt, device=dev)
+
+    def body(s, cl, cu, lbx, ubx):
+        x, lam, lam_box, g, c, A, f0 = (s[k] for k in (
+            "x", "lam", "lam_box", "g", "c", "A", "f"))
+        b = x.shape[0]
+        H = regularize(hess_fn(x, lam), settings.reg, settings.reg_eps)
+        qp = QPData(H=H, h=g, A=A, al=cl - c, au=cu - c, xl=lbx - x,
+                    xu=ubx - x)
+        qs = box_admm_solve(qp, y0=lam, y_box0=lam_box, settings=settings.qp)
+        p_ok = (torch.isfinite(qs.x).all(1) & torch.isfinite(qs.y).all(1)
+                & torch.isfinite(qs.y_box).all(1))[:, None]
+        pstep = torch.where(p_ok, qs.x, torch.zeros_like(qs.x))
+        lam_qp = torch.where(p_ok, qs.y, lam)
+        lam_box_qp = torch.where(p_ok, qs.y_box, lam_box)
+        pstep = torch.clamp(pstep, min=lbx - x, max=ubx - x)
+
+        # line search over the fixed trial ladder, every lane at once
+        v0 = _violation_l1(c, cl, cu, x, lbx, ubx)
+        dphi_f = torch.sum(g * pstep, dim=1)
+        xt = (x[:, None, :] + alphas[None, :, None] * pstep[:, None, :]
+              ).reshape(b * L, n)
+        trial_f = cost_fn(xt).reshape(b, L)
+        trial_v = _violation_l1(con_fn(xt).reshape(b, L, m), cl[:, None],
+                                cu[:, None], xt.reshape(b, L, n),
+                                lbx[:, None], ubx[:, None])
+        bad = torch.isnan(trial_f) | torch.isnan(trial_v)
+        inf = torch.full_like(trial_f, float("inf"))
+        trial_f = torch.where(bad, inf, trial_f)
+        trial_v = torch.where(bad, inf, trial_v)
+
+        mu = torch.clamp(settings.merit_mu_safety + torch.maximum(
+            _inf_norm(lam_qp), _inf_norm(lam_box_qp)),
+            max=settings.merit_mu_max)
+        phi0 = f0 + mu * v0
+        dphi = dphi_f - mu * v0
+        phis = trial_f + mu[:, None] * trial_v
+        ok = phis <= phi0[:, None] + settings.eta * alphas[None] * dphi[:, None]
+        first = torch.argmax(ok.to(torch.int32), dim=1)
+        finite = torch.isfinite(trial_f) & torch.isfinite(trial_v)
+        improve = (phis < phi0[:, None]) & finite
+        best = torch.argmin(torch.where(improve, phis, inf), dim=1)
+        smallest = L - 1 - torch.argmax(
+            torch.flip(finite, [1]).to(torch.int32), dim=1)
+        any_fin = finite.any(1)
+        fallback = torch.where(improve.any(1), best,
+                               torch.where(any_fin, smallest,
+                                           torch.zeros_like(smallest)))
+        sel = torch.where(ok.any(1), first, fallback)
+        alpha = torch.where(any_fin, alphas[sel], torch.zeros_like(v0))
+
+        x2 = x + alpha[:, None] * pstep
+        lam2 = lam + alpha[:, None] * (lam_qp - lam) if m else lam
+        lam_box2 = lam_box + alpha[:, None] * (lam_box_qp - lam_box)
+        g2 = grad_fn(x2)
+        c2 = con_fn(x2)
+        A2 = jac_fn(x2)
+        f2 = torch.where(any_fin, trial_f.gather(1, sel[:, None])[:, 0], f0)
+
+        ps = _inf_norm(alpha[:, None] * pstep)
+        ds = _inf_norm(alpha[:, None] * (lam_qp - lam))
+        vi = _violation_inf(c2, cl, cu, x2, lbx, ubx)
+        stat = _inf_norm(g2 + _mv(A2.transpose(1, 2), lam2) + lam_box2)
+        lam_scale = torch.clamp(torch.maximum(_inf_norm(lam2),
+                                              _inf_norm(lam_box2)), min=1.0)
+        conv = ((ps <= settings.eps_prim)
+                & (ds <= settings.eps_dual * lam_scale)
+                & (vi <= settings.eps_viol)
+                & (stat <= settings.eps_stat * lam_scale))
+        return {"x": x2, "lam": lam2, "lam_box": lam_box2,
+                "it": s["it"] + 1, "done": conv,
+                "qp_iters": s["qp_iters"] + qs.iters, "ps": ps, "ds": ds,
+                "vi": vi, "g": g2, "c": c2, "A": A2, "f": f2}
+
+    x0 = torch.clamp(x0.to(dt), min=lbx, max=ubx)
+    inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
+    S = {"x": x0,
+         "lam": torch.zeros((B, m), dtype=dt, device=dev) if lam0 is None
+         else lam0.to(dt),
+         "lam_box": torch.zeros((B, n), dtype=dt, device=dev)
+         if lam_box0 is None else lam_box0.to(dt),
+         "it": torch.zeros(B, dtype=torch.int32, device=dev),
+         "done": torch.zeros(B, dtype=torch.bool, device=dev),
+         "qp_iters": torch.zeros(B, dtype=torch.int32, device=dev),
+         "ps": inf, "ds": inf.clone(), "vi": inf.clone(),
+         "g": grad_fn(x0), "c": con_fn(x0), "A": jac_fn(x0),
+         "f": cost_fn(x0)}
+    while True:
+        active = ~S["done"] & (S["it"] < settings.max_iter)
+        idx = torch.nonzero(active).flatten()
+        if idx.numel() == 0:
+            break
+        take = lambda t: t.index_select(0, idx)
+        new = body({k: take(v) for k, v in S.items()}, take(cl), take(cu),
+                   take(lbx), take(ubx))
+        for k, v in new.items():
+            S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
+
+    status = torch.where(S["done"], st.SOLVED, st.MAX_ITER_EXCEEDED).to(
+        torch.int32)
+    return SQPSolution(x=S["x"], lam=S["lam"], lam_box=S["lam_box"],
+                       status=status, iters=S["it"], qp_iters=S["qp_iters"],
+                       cost=S["f"], primal_step=S["ps"], dual_step=S["ds"],
+                       violation=S["vi"])
