@@ -1,21 +1,25 @@
-// Batched dense unpivoted LDL^T factor+solve and solve, for NVIDIA Hopper
-// (sm_90a).
+// Batched dense unpivoted LDL^T factor, factor+solve and solve, for NVIDIA
+// Hopper (sm_90a).
 //
 // Replaces the JAX package's Pallas TPU kernels
+//   polympc_tpu/ops/ldlt.py : ldlt_factor       (_factor_body)
 //   polympc_tpu/ops/ldlt.py : ldlt_factor_solve (_factor_solve_body)
 //   polympc_tpu/ops/ldlt.py : ldlt_solve        (_solve_body)
 // and computes what they compute: for each (K, K) matrix of a batch, the
 // unpivoted packed LDL^T (F holds L^T in its strict upper triangle,
-// F[i][c] = L[c][i]; d the pivots) plus one forward/diagonal/backward solve;
-// or the solve alone against a given packed factor.  The factor stays
+// F[i][c] = L[c][i]; d the pivots), alone or with one
+// forward/diagonal/backward solve; or the solve alone against a given
+// packed factor.  The factor stays
 // unpivoted on purpose: the certify pass feeds it indefinite Newton-KKT
 // matrices and its iterative-refinement sweeps are tuned to this factor's
 // growth (nlp/refine.py).
 //
 // What bounds it on an H100: latency, not bytes or FLOPs.  The factor is K
 // dependent rank-1 updates and each solve 2K dependent pivot steps, each
-// ending in a barrier; per matrix the card moves ~2*K*K*4 bytes (70 KB at
-// K = 132) and does ~K^3/3 FMAs.
+// ending in a barrier (one __syncthreads per pivot); per matrix the card
+// moves ~2*K*K*4 bytes (140 KB at K = 132, 218 KB at the race car's
+// K = 165) and does ~K^3/3 FMAs, so at B = 512 the bound is some 0.02-0.03
+// ms (bytes) against the kernels' measured tenths of a millisecond.
 //
 // What the design does about it: one thread block per matrix keeps the
 // whole matrix in dynamic shared memory (row stride K+1, so the column walks
@@ -37,6 +41,28 @@ __device__ void load_matrix(T* S, const T* G, int K, int ldk) {
 }
 
 template <typename T>
+__device__ void store_factor(T* F, T* d, const T* Fs, const T* ds, int K,
+                             int ldk, size_t off) {
+  for (int idx = threadIdx.x; idx < K * K; idx += blockDim.x)
+    F[off * K + idx] = Fs[(idx / K) * ldk + idx % K];
+  for (int r = threadIdx.x; r < K; r += blockDim.x) d[off + r] = ds[r];
+}
+
+template <typename T>
+__global__ void ldlt_factor_kernel(const T* __restrict__ M,
+                                   T* __restrict__ F, T* __restrict__ d,
+                                   int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Fs = reinterpret_cast<T*>(smem_raw);
+  const int ldk = K + 1;
+  T* ds = Fs + size_t(K) * ldk;
+  const size_t off = size_t(blockIdx.x) * K;
+  load_matrix(Fs, M + off * K, K, ldk);
+  ptk::factor_block(Fs, ds, K, ldk);
+  store_factor(F, d, Fs, ds, K, ldk, off);
+}
+
+template <typename T>
 __global__ void ldlt_factor_solve_kernel(const T* __restrict__ M,
                                          const T* __restrict__ b,
                                          T* __restrict__ x, T* __restrict__ F,
@@ -50,9 +76,7 @@ __global__ void ldlt_factor_solve_kernel(const T* __restrict__ M,
   load_matrix(Fs, M + off * K, K, ldk);
   for (int r = threadIdx.x; r < K; r += blockDim.x) y[r] = b[off + r];
   ptk::factor_block(Fs, ds, K, ldk);
-  for (int idx = threadIdx.x; idx < K * K; idx += blockDim.x)
-    F[off * K + idx] = Fs[(idx / K) * ldk + idx % K];
-  for (int r = threadIdx.x; r < K; r += blockDim.x) d[off + r] = ds[r];
+  store_factor(F, d, Fs, ds, K, ldk, off);
   ptk::solve_block(Fs, ds, K, ldk, y, K, 1);
   for (int r = threadIdx.x; r < K; r += blockDim.x) x[off + r] = y[r];
 }
@@ -89,6 +113,15 @@ extern "C" {
 
 size_t pt_ldlt_smem_bytes(int K) {
   return (size_t(K) * (K + 1) + 2 * size_t(K)) * sizeof(float);
+}
+
+int pt_ldlt_factor_f32(const float* M, float* F, float* d, int B, int K,
+                       int threads, void* stream) {
+  const size_t smem = pt_ldlt_smem_bytes(K);
+  if (int rc = allow_smem(ldlt_factor_kernel<float>, smem)) return rc;
+  ldlt_factor_kernel<float><<<B, threads, smem, (cudaStream_t)stream>>>(
+      M, F, d, K);
+  return int(cudaGetLastError());
 }
 
 int pt_ldlt_factor_solve_f32(const float* M, const float* b, float* x,

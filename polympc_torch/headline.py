@@ -40,7 +40,7 @@ def bench_x0s(B: int, seed: int = 0):
                      gamma0, s0, np.full(B, 0.05)], axis=1).astype(np.float32)
 
 
-def kite_problem(device=None, dtype=torch.float32):
+def kite_problem(device="cuda", dtype=torch.float32):
     """bench.py's problem and solver settings: (tr, bounds, prm, settings)."""
     ocp = augment_ocp(lambda x, u: kite_dynamics(x, u), kite_output,
                       kite_path, nx=3, nu=1, ny=2)
@@ -97,14 +97,10 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def run(B: int = 512, device="cuda", reps: int = 5, x0s=None):
-    """Solve and certify bench's batch: one warm-up, then ``reps`` timed
-    repetitions (wall clock, synchronised).
-
-    Returns ``(extra, lanes)``: ``extra`` holds ``bench.py``'s ``extra`` keys
-    (batch, solved, status_solved, kkt_residual_max, kkt_tol,
-    wall_s_per_batch, devices, platform, mean_sqp_iters); ``lanes`` the
-    per-lane numpy arrays residual, certified, status and iters."""
+def batch_fn(B: int = 512, device="cuda", x0s=None):
+    """bench's timed unit: a function of no arguments that solves and
+    certifies the batch (bench's x0s, or ``x0s``) and returns
+    ``(sols, residuals)`` after a synchronise."""
     device = torch.device(device)
     tr, bounds, prm, settings = kite_problem(device)
     solve = make_batch_solver(tr, bounds, prm, settings, rollout_guess=True)
@@ -120,7 +116,19 @@ def run(B: int = 512, device="cuda", reps: int = 5, x0s=None):
         kkt = certify(tr, x0, sols, bounds64, prm64)
         _sync(device)
         return sols, kkt
+    return once
 
+
+def run(B: int = 512, device="cuda", reps: int = 5, x0s=None):
+    """Solve and certify bench's batch: one warm-up, then ``reps`` timed
+    repetitions (wall clock, synchronised).
+
+    Returns ``(extra, lanes)``: ``extra`` holds ``bench.py``'s ``extra`` keys
+    (batch, solved, status_solved, kkt_residual_max, kkt_tol,
+    wall_s_per_batch, devices, platform, mean_sqp_iters); ``lanes`` the
+    per-lane numpy arrays residual, certified, status and iters."""
+    device = torch.device(device)
+    once = batch_fn(B, device, x0s)
     once()
     walls = []
     for _ in range(reps):

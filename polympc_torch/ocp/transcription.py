@@ -96,7 +96,7 @@ class Transcription:
     def n_vars(self) -> int:
         return self.nlp.n
 
-    def initial_guess(self, x0=None, dtype=torch.float64, device=None):
+    def initial_guess(self, x0=None, dtype=torch.float64, device="cuda"):
         """Constant-trajectory guess (x0 tiled, zero controls/params) in
         physical units; returns the scaled (n,) decision vector."""
         N, ocp = self.N, self.ocp
@@ -170,7 +170,7 @@ class Transcription:
                     self.mesh.order, self.mesh.num_segments)
 
     def params(self, p=None, d=None, t0=0.0, tf=1.0, dtype=torch.float64,
-               device=None):
+               device="cuda"):
         mk = lambda v, size: torch.zeros(size, dtype=dtype, device=device) \
             if v is None else torch.as_tensor(v, dtype=dtype, device=device)
         return {"p": mk(p, self.ocp.np_), "d": mk(d, self.ocp.nd),
@@ -394,7 +394,7 @@ def transcribe(ocp: OCP, mesh: SegmentedBasis,
 
 def ocp_bounds(tr: Transcription, xl=None, xu=None, ul=None, uu=None,
                pl=None, pu=None, gl=None, gu=None, x0=None, xf=None,
-               dtype=torch.float64, device=None) -> NLPBounds:
+               dtype=torch.float64, device="cuda") -> NLPBounds:
     """Assemble NLP box/row bounds from per-variable OCP bounds (shared by
     all lanes).  x0/xf pin the first/last state node by equality
     (mpc_wrapper.hpp:89-181); state/control bounds broadcast over nodes."""

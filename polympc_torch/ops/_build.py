@@ -27,8 +27,8 @@ SMEM_LIMIT_BYTES = 227 * 1024
 
 # Launch count of each kernel: its wrapper adds one where it launches the
 # kernel on the card and nowhere else (the plain versions do not count).
-LAUNCHES = {"bbt_epoch": 0, "bbt_solve": 0,
-            "ldlt_factor_solve": 0, "ldlt_solve": 0}
+LAUNCHES = {"bbt_epoch": 0, "bbt_solve": 0, "admm_epoch": 0,
+            "ldlt_factor": 0, "ldlt_factor_solve": 0, "ldlt_solve": 0}
 
 
 def reset_launches():
@@ -37,11 +37,11 @@ def reset_launches():
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("bbt_epoch.cu", "ldlt.cu")
+SOURCES = ("bbt_epoch.cu", "ldlt.cu", "admm_epoch.cu")
 HEADERS = ("ldlt_device.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "polympc_torch_kernels"
-FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _P, _I, _F, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_size_t
 _SIGNATURES = {
@@ -49,6 +49,9 @@ _SIGNATURES = {
     "pt_bbt_solve_f32": (_I, [_P] * 7 + [_I] * 5 + [_I, _P]),
     "pt_bbt_epoch_smem_bytes": (_Z, [_I] * 4),
     "pt_bbt_solve_smem_bytes": (_Z, [_I] * 4),
+    "pt_admm_epoch_f32": (_I, [_P] * 18 + [_I, _I, _I, _F, _F, _I, _I, _P]),
+    "pt_admm_epoch_smem_bytes": (_Z, [_I, _I]),
+    "pt_ldlt_factor_f32": (_I, [_P] * 3 + [_I, _I, _I, _P]),
     "pt_ldlt_factor_solve_f32": (_I, [_P] * 5 + [_I, _I, _I, _P]),
     "pt_ldlt_solve_f32": (_I, [_P] * 4 + [_I, _I, _I, _P]),
     "pt_ldlt_smem_bytes": (_Z, [_I]),
@@ -80,7 +83,8 @@ def _digest() -> str:
 
 def build(verbose: bool = False):
     """Compile the kernels into the build directory (if not already there)
-    and return ``(path, seconds, compiler_output)``.  ``verbose`` adds
+    and return ``(path, seconds, compiler_output)``: one ``nvcc`` per
+    source, all started together, then one link.  ``verbose`` adds
     ``-Xptxas -v`` (registers, shared memory and spills per kernel), which
     leaves the binary as it is."""
     extra = ("-Xptxas", "-v") if verbose else ()
@@ -89,19 +93,27 @@ def build(verbose: bool = False):
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *FLAGS, *extra, "-I", str(CSRC), "-o", tmp,
-               *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out, time.perf_counter() - t0, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *FLAGS, *extra, "-I", str(CSRC), "-c", "-o", str(obj),
+             str(CSRC / src)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, log in zip(SOURCES, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{log}")
+        lib = Path(tmp) / out.name
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(lib),
+                               *(str(o) for o in objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        os.replace(lib, out)
+    return out, time.perf_counter() - t0, "".join(logs)
 
 
 def library():

@@ -1,5 +1,6 @@
-"""Batched unpivoted LDL^T factor+solve and solve — the port of
-polympc_tpu/ops/ldlt.py (``ldlt_factor_solve``, ``ldlt_solve``).
+"""Batched unpivoted LDL^T factor, factor+solve and solve — the port of
+polympc_tpu/ops/ldlt.py (``ldlt_factor``, ``ldlt_factor_solve``,
+``ldlt_solve``).
 
 Storage convention (packed, one square + one diagonal per instance), as in
 the JAX package:
@@ -24,8 +25,8 @@ import torch
 
 from polympc_torch.ops import _build
 
-__all__ = ["ldlt_factor_solve", "ldlt_solve", "ldlt_factor_solve_plain",
-           "ldlt_solve_plain", "ldlt_factor_plain"]
+__all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve",
+           "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain"]
 
 _THREADS = 256
 
@@ -82,6 +83,38 @@ def _shape(name, M, b):
     return M.shape[0], M.shape[1]
 
 
+def ldlt_factor(M):
+    """Batched packed LDL^T of symmetric quasi-definite (B, K, K) matrices:
+    returns (F (B, K, K), d (B, K)) for :func:`ldlt_solve`.  The JAX
+    package returns K rounded up to its sublane multiple; here F is K x K.
+
+    CUDA float32 launches the ``csrc/ldlt.cu`` factor kernel (one thread
+    block per matrix, the matrix in shared memory); CPU takes the plain
+    version."""
+    if M.dim() != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"ldlt_factor: expected (B, K, K), got "
+                         f"{tuple(M.shape)}")
+    B, K = M.shape[0], M.shape[1]
+    if M.device.type == "cpu":
+        return ldlt_factor_plain(M)
+    if M.device.type != "cuda":
+        raise ValueError(f"ldlt_factor: no kernel for {M.device}")
+    _check_cuda("ldlt_factor", M)
+    lib = _build.library()
+    _build.check_smem(lib.pt_ldlt_smem_bytes(K), f"ldlt_factor at K={K}")
+    M = M.contiguous()
+    F = torch.empty_like(M)
+    d = M.new_empty((B, K))
+    if B == 0:
+        return F, d
+    with torch.cuda.device(M.device):
+        rc = lib.pt_ldlt_factor_f32(M.data_ptr(), F.data_ptr(), d.data_ptr(),
+                                    B, K, _THREADS, _build.stream_of(M))
+    _build.check(rc, "ldlt_factor")
+    _build.LAUNCHES["ldlt_factor"] += 1
+    return F, d
+
+
 def ldlt_factor_solve(M, b):
     """Batched packed LDL^T factor + solve: (B, K, K), (B, K) -> (x, F, d).
 
@@ -112,7 +145,7 @@ def ldlt_factor_solve(M, b):
 
 
 def ldlt_solve(F, d, b):
-    """Solve (L D L^T) x = b for a batch: F, d from
+    """Solve (L D L^T) x = b for a batch: F, d from :func:`ldlt_factor` or
     :func:`ldlt_factor_solve`, b (B, K) -> x (B, K)."""
     B, K = _shape("ldlt_solve", F, b)
     if d.shape != b.shape:

@@ -245,7 +245,7 @@ def bbt_solve_dense(Td, Oh, Ct, Dp, b, st: CollocStructure):
 
 
 def random_bbt_kkt(st: CollocStructure, B: int, seed: int = 0,
-                   dtype=torch.float32, device=None):
+                   dtype=torch.float32, device="cuda"):
     """Random quasi-definite (B, K, K) KKTs whose every nonzero lies in the
     BBT pattern of ``st`` (diagonal blocks, thin couplings, border), for
     kernel parity checks: symmetric, primal diagonal shifted positive and

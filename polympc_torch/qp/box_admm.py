@@ -16,16 +16,23 @@ gathered into a smaller batch for the next epoch, so every lane stops at
 the epoch it would stop at alone.
 
 Epochs run through ``kkt_solver``: "kernel" with a ``structure`` runs the
-fused BBT epoch (ops/bbt_kernel.py: the CUDA kernel for CUDA float32, its
-plain version on the CPU); "lu" and "inverse" run the dense epoch.  The
-active-set polish and Ruiz equilibration are not in this slice.
+fused BBT epoch (ops/bbt_kernel.py), "kernel" without one the fused dense
+LDL^T epoch (ops/admm_epoch.py) — each the CUDA kernel for CUDA float32,
+its plain version on the CPU — unless the KKT is too large for the dense
+kernel's shared memory, which the shape decides before any launch; "lu"
+and "inverse" (and such a large KKT) run the LU epoch.  ``equil_iters > 0``
+solves the Ruiz-equilibrated problem (warm start scaled in, termination and
+rho on the scaled problem, solution scaled back); ``polish`` runs the
+active-set polish (OSQP section 5.5) on the solution.
 """
 from __future__ import annotations
 
 import torch
 
+from polympc_torch.ops.admm_epoch import admm_epoch_batched, epoch_kernel_fits
 from polympc_torch.ops.bbt_kernel import bbt_admm_epoch_batched
 from polympc_torch.ops.structure import structure_is_consistent
+from polympc_torch.qp.ruiz import ruiz_equilibrate, unscale_solution
 from polympc_torch.qp.types import QPData, QPSolution, ADMMSettings
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
@@ -170,25 +177,69 @@ def _dense_epoch(kkt, qp: QPData, rho, rb, state, settings: ADMMSettings):
 
 
 def _epoch(kkt, qp: QPData, rho, rb, state, settings: ADMMSettings):
-    """One epoch on a batch of lanes, dispatched on ``kkt_solver`` and the
-    structure (the JAX package's ``_make_epoch_fn`` as a direct call)."""
+    """One epoch on a batch of lanes, dispatched on ``kkt_solver``, the
+    structure and the KKT's size (the JAX package's ``_make_epoch_fn`` as a
+    direct call)."""
     stc = settings.structure
     if settings.kkt_solver == "kernel":
-        if stc is None:
-            if kkt.device.type == "cpu":
-                return _dense_epoch(kkt, qp, rho, rb, state, settings)
-            raise NotImplementedError(
-                "kkt_solver='kernel' without a structure needs the dense "
-                "fused epoch kernel (ops/admm_epoch.py in the JAX package), "
-                "which is not ported yet; pass structure=tr.bbt_structure() "
-                "or kkt_solver='lu'")
-        if not structure_is_consistent(stc):
-            raise ValueError("inconsistent CollocStructure")
-        return bbt_admm_epoch_batched(
-            kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb, *state,
-            st=stc, sigma=float(settings.sigma),
-            alpha=float(settings.alpha), iters=int(settings.check_every))
+        kw = dict(sigma=float(settings.sigma), alpha=float(settings.alpha),
+                  iters=int(settings.check_every))
+        args = (kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb, *state)
+        if stc is not None:
+            if not structure_is_consistent(stc):
+                raise ValueError("inconsistent CollocStructure")
+            return bbt_admm_epoch_batched(*args, st=stc, **kw)
+        if epoch_kernel_fits(qp.h.shape[1], qp.al.shape[1]):
+            return admm_epoch_batched(*args, **kw)
     return _dense_epoch(kkt, qp, rho, rb, state, settings)
+
+
+def _polish(qp: QPData, x, y, yb, rp, rd, settings: ADMMSettings):
+    """Active-set polish (OSQP section 5.5), per lane: guess the active set
+    from the ADMM solution, solve the equality-constrained KKT exactly (one
+    dense LU), keep the polished point only where it improves both
+    residuals."""
+    B, n = x.shape
+    m = y.shape[1]
+    dt, dev = x.dtype, x.device
+    tol = 10.0 * settings.eps_abs + 1e-9
+    Ax = _mv(qp.A, x)
+    act_lo = (Ax - qp.al) <= tol
+    act_up = (qp.au - Ax) <= tol
+    b_act = torch.where(act_lo, qp.al, qp.au)
+    actb_lo = (x - qp.xl) <= tol
+    actb_up = (qp.xu - x) <= tol
+    bb_act = torch.where(actb_lo, qp.xl, qp.xu)
+    b_act = torch.where(torch.isfinite(b_act), b_act, torch.zeros_like(b_act))
+    bb_act = torch.where(torch.isfinite(bb_act), bb_act,
+                         torch.zeros_like(bb_act))
+    af = (act_lo | act_up).to(dt)
+    abf = (actb_lo | actb_up).to(dt)
+    dl = settings.polish_delta
+    In = torch.eye(n, dtype=dt, device=dev).expand(B, n, n)
+    box_row = torch.cat([torch.diag_embed(abf),
+                         qp.A.new_zeros((B, n, m)),
+                         torch.diag_embed((1.0 - abf) - dl * abf)], dim=2)
+    top = torch.cat([qp.H + dl * In, qp.A.transpose(1, 2), In], dim=2)
+    mid = torch.cat([af[:, :, None] * qp.A,
+                     torch.diag_embed((1.0 - af) - dl * af),
+                     qp.A.new_zeros((B, m, n))], dim=2)
+    J = torch.cat([top, mid, box_row], dim=1)
+    rhs = torch.cat([-qp.h, af * b_act, abf * bb_act], dim=1)
+    # a singular system reports info != 0 and keeps the ADMM point, as a
+    # non-finite solve does in the JAX package
+    sol, info = torch.linalg.solve_ex(J, rhs)
+    xp = torch.clamp(sol[:, :n], min=qp.xl, max=qp.xu)
+    yp = sol[:, n:n + m]
+    ybp = sol[:, n + m:]
+    zp = torch.clamp(_mv(qp.A, xp), min=qp.al, max=qp.au)
+    rp_p, rd_p, _, _ = _residuals(qp, xp, zp, xp, yp, ybp)
+    ok = ((info == 0) & torch.isfinite(xp).all(1) & torch.isfinite(yp).all(1)
+          & torch.isfinite(ybp).all(1) & (rp_p <= rp) & (rd_p <= rd))
+    keep = ok[:, None]
+    return (torch.where(keep, xp, x), torch.where(keep, yp, y),
+            torch.where(keep, ybp, yb), torch.where(ok, rp_p, rp),
+            torch.where(ok, rd_p, rd))
 
 
 def _take(qp: QPData, idx):
@@ -203,13 +254,6 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
 
     x0, y0, y_box0: optional (B, n) / (B, m) / (B, n) warm starts.
     """
-    if settings.polish:
-        raise NotImplementedError(
-            "the active-set polish (polish=True) is ported in slice 3; "
-            "pass polish=False")
-    if settings.equil_iters > 0:
-        raise NotImplementedError(
-            "Ruiz equilibration (equil_iters > 0) is ported in slice 2")
     if not settings.validate():
         raise ValueError("invalid ADMM settings")
     B, n = qp.h.shape
@@ -221,6 +265,15 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
         else y0.to(dt)
     yb = torch.zeros((B, n), dtype=dt, device=dev) if y_box0 is None \
         else y_box0.to(dt)
+    scaling = None
+    if settings.equil_iters > 0:
+        qp, scaling = ruiz_equilibrate(qp, iters=settings.equil_iters)
+        # inverse of unscale_solution: x = d x~, y = e y~ / c,
+        # yb = yb~ / (d c)
+        c = scaling.c[:, None]
+        x = x / scaling.d
+        y = y * c / scaling.e
+        yb = yb * scaling.d * c
     z = _mv(qp.A, x)
     q = x
 
@@ -274,14 +327,25 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
         for k, v in upd.items():
             S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
 
+    x, y, yb, done = S["x"], S["y"], S["yb"], S["done"]
+    if settings.polish:
+        x, y, yb, rp, rd = _polish(qp, x, y, yb, S["rp"], S["rd"], settings)
+        eps_p = settings.eps_abs + settings.eps_rel * torch.maximum(
+            _inf_norm(_mv(qp.A, x)), _inf_norm(x))
+        eps_d = settings.eps_abs + settings.eps_rel * torch.maximum(
+            _inf_norm(_mv(qp.H, x)), _inf_norm(qp.h))
+        done = done | ((rp <= eps_p) & (rd <= eps_d) & ~S["div"])
+        S["rp"], S["rd"] = rp, rd
     status = torch.full((B,), st.MAX_ITER_EXCEEDED, dtype=torch.int32,
                         device=dev)
-    status = torch.where(S["done"], st.SOLVED, status)
+    status = torch.where(done, st.SOLVED, status)
     status = torch.where(S["dinf"], st.INCONSISTENT, status)
     status = torch.where(S["pinf"], st.INFEASIBLE, status)
     status = torch.where(S["div"], st.UNSOLVED, status).to(torch.int32)
     rho_final, _ = penalties(S["rho"], qp, settings)
-    return QPSolution(x=S["x"], y=S["y"], y_box=S["yb"], status=status,
+    if scaling is not None:
+        x, y, yb = unscale_solution(x, y, yb, scaling)
+    return QPSolution(x=x, y=y, y_box=yb, status=status,
                       iters=(S["epoch"] * settings.check_every).to(
                           torch.int32),
                       res_prim=S["rp"], res_dual=S["rd"], rho=rho_final)

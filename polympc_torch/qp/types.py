@@ -51,8 +51,9 @@ class ADMMSettings:
 
     ``kkt_solver``: "lu" (factor + triangular solves), "inverse" (explicit
     inverse once per epoch) or "kernel": each epoch runs as one fused
-    hand-written kernel (ops/bbt_kernel.py) on the bordered-block-tridiagonal
-    KKT given by ``structure`` — the JAX package's "pallas" setting.
+    hand-written kernel — on the bordered-block-tridiagonal KKT given by
+    ``structure`` (ops/bbt_kernel.py), or on the dense KKT without one
+    (ops/admm_epoch.py) — the JAX package's "pallas" setting.
     """
     rho: float = 0.1
     rho_min: float = 1e-6
@@ -67,8 +68,8 @@ class ADMMSettings:
     adaptive_rho: bool = True
     adaptive_rho_threshold: float = 5.0
     eps_inf: float = 1e-5
-    equil_iters: int = 0         # Ruiz equilibration: ported in slice 2
-    polish: bool = True          # active-set polish: ported in slice 3
+    equil_iters: int = 0         # Ruiz equilibration iterations (0 = off)
+    polish: bool = True          # active-set polish after ADMM (OSQP 5.5)
     polish_delta: float = 1e-8
     kkt_solver: str = "lu"       # "lu" | "inverse" | "kernel"
     structure: object = None     # Optional[ops.structure.CollocStructure]

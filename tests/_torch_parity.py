@@ -5,7 +5,10 @@ the minimum-time parking OCP with a parameter and a node inequality (its
 KKT has a border).  Inputs are made with numpy from a seed and handed to
 both sides; the port receives them through ``polympc_torch.utils.convert``.
 """
+import contextlib
+
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -90,3 +93,29 @@ def lane_points(tr, B, seed, scale=0.3):
 
 def t64(a):
     return torch.tensor(np.array(a, np.float64))
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run a block with one intra-op CPU thread.  In CPU builds of PyTorch
+    that factor with oneMKL, a batched LU of matrices above about 150 rows
+    (``torch.linalg.lu_factor``, ``solve``) can hang when more than one
+    thread works on it: the race car's LU epoch (K=165) and the kite's
+    polish system (K=209) are such matrices."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_thread():
+    """A module's tests and fixtures on one intra-op thread (autouse in the
+    modules that import it): the suite's workers share the CPU, where more
+    threads per worker only contend (the CPU race-car harness takes 2.4x
+    longer on two threads beside five other busy processes); see also
+    :func:`one_thread`."""
+    with one_thread():
+        yield

@@ -7,7 +7,9 @@ machine with a card and no JAX (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Inputs are well-conditioned (random diagonally dominant quasi-definite
-KKTs in the kite's BBT pattern, with and without a border), so float32
+KKTs in the kite's BBT pattern, with and without a border; dense
+quasi-definite boxADMM KKTs at the spline QP's shape, at K=132 and
+box-only; diagonally dominant matrices for the LDL^T factor), so float32
 results of kernel and plain version agree to 1e-4 relative.
 """
 import numpy as np
@@ -17,7 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 from polympc_torch.headline import kite_problem  # noqa: E402
-from polympc_torch.ops import _build, bbt_kernel, ldlt  # noqa: E402
+from polympc_torch.ops import _build, admm_epoch, bbt_kernel, ldlt  # noqa: E402,E501
 from polympc_torch.ops.structure import (  # noqa: E402
     bbt_structure, gather_blocks, permute_vec, random_bbt_kkt,
     unpermute_vec)
@@ -25,7 +27,10 @@ from polympc_torch.ops.structure import (  # noqa: E402
 SIGMA, ALPHA, ITERS = 1e-6, 1.6, 50
 
 
-def _cuda():
+@pytest.fixture
+def dev():
+    """The card; the test skips where there is none (decided here, not at
+    import)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the hand-written kernels run only "
                     "there")
@@ -57,8 +62,7 @@ def _epoch_case(st, B, dev, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("border", [False, True], ids=["kite", "bordered"])
-def test_bbt_epoch_kernel_matches_plain(border):
-    dev = _cuda()
+def test_bbt_epoch_kernel_matches_plain(border, dev):
     st = _structure(border)
     _, args = _epoch_case(st, 64, dev)
     _build.reset_launches()
@@ -71,8 +75,7 @@ def test_bbt_epoch_kernel_matches_plain(border):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("border", [False, True], ids=["kite", "bordered"])
-def test_bbt_solve_kernel_matches_plain_and_dense(border):
-    dev = _cuda()
+def test_bbt_solve_kernel_matches_plain_and_dense(border, dev):
     st = _structure(border)
     M = random_bbt_kkt(st, 64, seed=3, device=dev)
     b = torch.as_tensor(np.random.default_rng(4).normal(size=(64, st.K)),
@@ -93,8 +96,7 @@ def test_bbt_solve_kernel_matches_plain_and_dense(border):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [8, 132, 200])
-def test_ldlt_kernels_match_plain(K):
-    dev = _cuda()
+def test_ldlt_kernels_match_plain(K, dev):
     rng = np.random.default_rng(K)
     A = rng.normal(size=(64, K, K))
     A = A + A.transpose(0, 2, 1)
@@ -117,9 +119,71 @@ def test_ldlt_kernels_match_plain(K):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+def _dense_epoch_case(n, m, B, dev, seed=0):
+    """A batch of quasi-definite boxADMM KKTs built for their own rho/rb
+    (primal block H + sigma I + diag(rb) positive definite, dual block
+    -1/rho), loose boxes (+-inf) on every fifth variable, and a random
+    state."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((B, n, n))
+    H = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+    J = rng.standard_normal((B, m, n))
+    rho = rng.uniform(0.5, 2.0, (B, m))
+    rb = rng.uniform(0.05, 0.2, (B, n))
+    K = np.zeros((B, n + m, n + m))
+    K[:, :n, :n] = H + SIGMA * np.eye(n) + rb[:, :, None] * np.eye(n)
+    K[:, :n, n:] = J.transpose(0, 2, 1)
+    K[:, n:, :n] = J
+    K[:, n:, n:] = -np.eye(m) / rho[:, :, None]
+    al = rng.normal(size=(B, m)) - 2.0
+    au = al + rng.uniform(0.5, 3.0, (B, m))
+    xl, xu = np.full((B, n), -0.8), np.full((B, n), 0.8)
+    xl[:, ::5], xu[:, ::5] = -np.inf, np.inf
+    vec = lambda k: rng.normal(size=(B, k)) * 0.1
+    arrays = (K, rng.standard_normal((B, n)), al, au, xl, xu, rho, rb,
+              vec(n), vec(m), vec(n) + 0.01, vec(m), vec(n))
+    return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in arrays)
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_float64():
-    dev = _cuda()
+@pytest.mark.parametrize("n,m", [(32, 15), (77, 55), (47, 0)],
+                         ids=["spline-shape", "K132", "box-only"])
+def test_admm_epoch_kernel_matches_plain(n, m, dev):
+    args = _dense_epoch_case(n, m, 64, dev, seed=n + m)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, iters=25)
+    _build.reset_launches()
+    got = admm_epoch.admm_epoch_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["admm_epoch"] == 1
+    want = admm_epoch.admm_epoch_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 47, 165])
+def test_ldlt_factor_kernel_matches_plain(K, dev):
+    rng = np.random.default_rng(K + 1)
+    A = rng.normal(size=(64, K, K))
+    A = A + A.transpose(0, 2, 1)
+    sign = np.where(np.arange(K) < K // 2, 1.0, -1.0)
+    A[:, np.arange(K), np.arange(K)] = sign * (np.abs(A).sum(axis=2) + 1.0)
+    M = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    _build.reset_launches()
+    Fk, dk = ldlt.ldlt_factor(M)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldlt_factor"] == 1
+    Fp, dp = ldlt.ldlt_factor_plain(M)
+    upper = torch.triu(torch.ones(K, K, dtype=torch.bool, device=dev), 1)
+    torch.testing.assert_close(Fk[:, upper], Fp[:, upper], rtol=1e-4,
+                               atol=1e-5)
+    torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_float64(dev):
     M = torch.eye(4, dtype=torch.float64, device=dev)[None]
     with pytest.raises(TypeError, match="float32"):
         ldlt.ldlt_factor_solve(M, torch.ones((1, 4), dtype=torch.float64,

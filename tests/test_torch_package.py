@@ -1,7 +1,7 @@
 """Package-level checks of the PyTorch port (polympc_torch):
 
-  * no file of the port, and not chip_smoke.py, imports JAX or the JAX
-    package (an AST scan): the card's machine has no JAX;
+  * no file of the port, and not chip_smoke.py or trace_port.py, imports
+    JAX or the JAX package (an AST scan): the card's machine has no JAX;
   * the committed JAX reference of the certified kite batch loads, and its
     x0s are bench.py's;
   * the port imports and runs its small pieces where there is no nvcc and
@@ -41,7 +41,8 @@ def _imports(path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "trace_port.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -128,10 +129,10 @@ def test_convert_carries_jax_types():
     from polympc_torch.utils import convert
     jb = JBounds(lbx=jnp.zeros(3), ubx=jnp.ones(3), gl=jnp.zeros(0),
                  gu=jnp.zeros(0))
-    tb = convert.bounds(jb, torch.float32)
+    tb = convert.bounds(jb, torch.float32, device="cpu")
     assert isinstance(tb, NLPBounds) and tb.ubx.dtype == torch.float32
     prm = convert.params({"p": np.zeros(0), "d": [0.05], "t0": 0.0,
-                          "tf": jnp.asarray(2.0)})
+                          "tf": jnp.asarray(2.0)}, device="cpu")
     assert prm["tf"].item() == 2.0 and prm["d"].dtype == torch.float64
 
 
@@ -164,3 +165,52 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
     out = _run_smoke(alone, tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _public_callables():
+    """Every public function, method and dataclass of the port, by module
+    (read from the modules, nothing called)."""
+    import dataclasses
+    import importlib
+    import inspect
+    import pkgutil
+    import polympc_torch
+    for info in pkgutil.walk_packages(polympc_torch.__path__,
+                                      "polympc_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__",
+                                               None) != mod.__name__:
+                continue
+            if inspect.isfunction(obj):
+                yield f"{mod.__name__}.{name}", obj
+            elif inspect.isclass(obj):
+                if dataclasses.is_dataclass(obj):
+                    yield f"{mod.__name__}.{name}", obj
+                for m_name, m in vars(obj).items():
+                    if inspect.isfunction(m) and not m_name.startswith("_"):
+                        yield f"{mod.__name__}.{name}.{m_name}", m
+
+
+def test_public_builders_default_to_the_card():
+    """Every public function of the port that takes ``device`` defaults to
+    "cuda": nothing resolves a missing device to the CPU."""
+    import inspect
+    seen = []
+    for qual, fn in _public_callables():
+        params = inspect.signature(fn).parameters
+        if "device" in params:
+            seen.append(qual)
+            assert params["device"].default == "cuda", qual
+    for qual in ("polympc_torch.headline.kite_problem",
+                 "polympc_torch.ocp.transcription.Transcription.params",
+                 "polympc_torch.ocp.transcription.Transcription."
+                 "initial_guess",
+                 "polympc_torch.ocp.transcription.ocp_bounds",
+                 "polympc_torch.utils.convert.tensor",
+                 "polympc_torch.ops.structure.random_bbt_kkt",
+                 "polympc_torch.basis.splines.CubicSpline",
+                 "polympc_torch.control.path.track_from_curvature",
+                 "polympc_torch.models.race_car.make_wave_track",
+                 "polympc_torch.headline_table.race_car"):
+        assert qual in seen, qual

@@ -67,7 +67,7 @@ def points():
 def _torch_bounds(x0s):
     ttr, tb, _, _ = tp.torch_kite()
     bnd, _ = pin_initial_state(ttr, tb, tp.t64(x0s))
-    return ttr, bnd, ttr.params(d=[0.05], t0=0.0, tf=2.0)
+    return ttr, bnd, ttr.params(d=[0.05], t0=0.0, tf=2.0, device="cpu")
 
 
 @pytest.mark.parametrize("solve_dtype", ["float64", "float32"])
@@ -131,9 +131,9 @@ def test_three_stage_certify_matches_jax(points):
     want = np.asarray(j_certify(*(jnp.asarray(v) for v in (
         points["x0s"], p["x"], p["lam"], p["lam_box"]))))
     ttr, tb, _, _ = tp.torch_kite()
-    sols = convert.sqp_solution(_Sol(p))
+    sols = convert.sqp_solution(_Sol(p), device="cpu")
     got = headline.certify(ttr, torch.as_tensor(points["x0s"]), sols, tb,
-                           ttr.params(d=[0.05], t0=0.0, tf=2.0)).numpy()
+                           ttr.params(d=[0.05], t0=0.0, tf=2.0, device="cpu")).numpy()
     _residuals_agree(got, want)
     np.testing.assert_array_equal(got <= headline.KKT_TOL,
                                   want <= headline.KKT_TOL)
@@ -160,7 +160,7 @@ def test_kkt_residual_matches_jax(points):
         jnp.asarray(z), jnp.asarray(lam), jnp.asarray(lam_box))
     ttr, tb, _, _ = tp.torch_kite()
     got = kkt_residual(ttr.nlp, tp.t64(z), tp.t64(lam), tp.t64(lam_box), tb,
-                       ttr.params(d=[0.05], t0=0.0, tf=2.0))
+                       ttr.params(d=[0.05], t0=0.0, tf=2.0, device="cpu"))
     for f in got._fields:
         np.testing.assert_allclose(getattr(got, f).numpy(),
                                    np.asarray(getattr(want, f)), rtol=1e-10,

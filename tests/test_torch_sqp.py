@@ -69,7 +69,8 @@ def test_box_admm_matches_jax(kite_qps, solver):
         **({} if solver == "bbt" else {"kkt_solver": "lu",
                                        "structure": None}))
     assert (tqs.structure is None) == (solver == "lu")
-    got = box_admm_solve(convert.qp_data(qp), y0=tp.t64(lam), settings=tqs)
+    got = box_admm_solve(convert.qp_data(qp, device="cpu"), y0=tp.t64(lam),
+                         settings=tqs)
     np.testing.assert_array_equal(got.status.numpy(),
                                   np.asarray(want.status))
     np.testing.assert_array_equal(got.iters.numpy(), np.asarray(want.iters))
@@ -86,12 +87,16 @@ def test_box_admm_matches_jax(kite_qps, solver):
 
 
 def test_box_admm_refuses_unported_options(kite_qps):
-    qp = convert.qp_data(kite_qps[2])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        box_admm_solve(qp, settings=ADMMSettings(polish=True))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        box_admm_solve(qp, settings=ADMMSettings(polish=False,
-                                                 equil_iters=2))
+    """Polish and Ruiz equilibration are ported; the JAX package's name of
+    the kernel setting, "pallas", is not an option of the port ("kernel")."""
+    qp = convert.qp_data(kite_qps[2], device="cpu")
+    for kw in (dict(polish=True), dict(polish=False, equil_iters=2)):
+        with tp.one_thread():
+            sol = box_admm_solve(qp, settings=ADMMSettings(max_epochs=1,
+                                                           **kw))
+        assert torch.isfinite(sol.x).all()
+    with pytest.raises(ValueError, match="invalid ADMM settings"):
+        box_admm_solve(qp, settings=ADMMSettings(kkt_solver="pallas"))
 
 
 @pytest.mark.parametrize("mode", ["none", "gershgorin", "eigen", "eigmin",
@@ -146,7 +151,7 @@ def test_batch_solver_diagnostics_match_jax(kite_batch):
 
 def test_sqp_refuses_unported_modes():
     tr, b, prm, s = tp.torch_kite()
-    z = tr.initial_guess()[None]
+    z = tr.initial_guess(device="cpu")[None]
     for kw, slice_ in ((dict(hessian="bfgs"), "slice 3"),
                        (dict(hessian="exact", line_search="filter"),
                         "slice 3")):

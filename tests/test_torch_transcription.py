@@ -65,7 +65,7 @@ def problem(request):
         out["ineq"] = jax.vmap(nlp.ineq, (0, None))(zj, jprm)
         out["ineq_jac"] = jax.vmap(nlp.ineq_jac, (0, None))(zj, jprm)
     return {"name": name, "jtr": jtr, "ttr": ttr, "z": z, "lam": lam,
-            "prm": prm, "tprm": convert.params(prm),
+            "prm": prm, "tprm": convert.params(prm, device="cpu"),
             "out": {k: np.asarray(v) for k, v in out.items()}}
 
 
@@ -95,7 +95,7 @@ def test_float32_evaluation_stays_float32(problem):
     nlp = problem["ttr"].nlp
     z = tp.t64(problem["z"]).float()
     lam = tp.t64(problem["lam"]).float()
-    prm = convert.params(problem["prm"], torch.float32)
+    prm = convert.params(problem["prm"], torch.float32, device="cpu")
     for v in (nlp.eq_jac(z, prm), nlp.cost_grad(z, prm),
               nlp.lag_hessian(z, lam, prm)):
         assert v.dtype == torch.float32
@@ -125,7 +125,7 @@ def test_ocp_bounds_match_jax():
     kw = dict(ul=[-5.0, -10.0], uu=[5.0, 10.0], xl=tp.KITE_XL,
               xu=tp.KITE_XU, x0=[0.3, 0.1, 0.0, 1.0, 0.05])
     want = j_ocp_bounds(jtr, dtype=jnp.float64, **kw)
-    got = ocp_bounds(ttr, dtype=torch.float64, **kw)
+    got = ocp_bounds(ttr, dtype=torch.float64, device="cpu", **kw)
     for f in got._fields:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)))
@@ -146,11 +146,11 @@ def test_scaling_pack_unpack_match_jax():
         _close(g, w)
     _close(ttr.pack(*got), z)
     x0 = [0.3, 0.1, 0.0, 1.0, 0.05]
-    _close(ttr.initial_guess(x0), jtr.initial_guess(x0))
+    _close(ttr.initial_guess(x0, device="cpu"), jtr.initial_guess(x0))
     prm = _prm_np("kite")
     jprm = {k: jnp.asarray(v, jnp.float64) for k, v in prm.items()}
     lam = tp.lane_points(jtr, B, seed=6)[1]
-    tprm = convert.params(prm)
+    tprm = convert.params(prm, device="cpu")
     _close(ttr.nlp.eq_jac(tp.t64(z), tprm),
            jax.vmap(jtr.nlp.eq_jac, (0, None))(jnp.asarray(z), jprm))
     _close(ttr.nlp.lag_hessian(tp.t64(z), tp.t64(lam), tprm),
