@@ -25,6 +25,13 @@ Phases, each printing its own lines and raising on failure:
        spline-fitting QP (B=4096, and B=1 beside the LU epoch), frame
        transform (B=4096, and B=1), race car (B=512 with the fp64 certify,
        3 repetitions, and the B=1 warm re-solve, 10 repetitions);
+       dist_kite_s8: the horizon-partitioned SQP (polympc_torch/
+       dist_point.py: kite, Chebyshev(5) x 8 segments, B=128, fp64
+       certify), a small warm-up then one timed batch through the kernel
+       route, and its B=1 point through the "lu" and the kernel route;
+       then, outside the counts, the same batch through the "lu" route;
+       each route against the JAX package's record of the same route
+       (tests/data/dist_kite_s8_jax_cpu.npz);
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -41,6 +48,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(ROOT, "tests", "data", "kite_b512_jax_cpu.npz")
 HEADLINE_REFERENCE = os.path.join(ROOT, "tests", "data",
                                   "headline_jax_cpu.npz")
+DIST_REFERENCE = os.path.join(ROOT, "tests", "data",
+                              "dist_kite_s8_jax_cpu.npz")
 
 # Tolerances of the kernel-vs-plain phase.
 # The epoch runs 50 over-relaxed ADMM iterations in float32; the kernel and
@@ -84,6 +93,8 @@ LDLT_GROWTH = 1e-3
 # orders.  The spline QP and the frame transform must solve exactly as many
 # lanes as the record.
 CERTIFY_SLACK = 10
+# The dist path (B=128) may certify at most 3 lanes (2% of B) fewer.
+DIST_SLACK = 3
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -378,9 +389,18 @@ def bound(flops, nbytes):
 
 
 def flops_factor(K):
-    """Unpivoted LDL^T of one K x K matrix: K rank-1 updates of the
-    trailing block (a multiply-add each) and the row scalings."""
-    return 2 * sum(j * j for j in range(1, K)) + K * (K - 1) // 2
+    """Unpivoted LDL^T of one symmetric K x K matrix: at each pivot the
+    rank-1 update of the trailing block's lower triangle (n (n+1) / 2
+    multiply-adds for a trailing order n) and the n scalings of the
+    column; about K^3 / 3."""
+    return sum(n * (n + 1) + n for n in range(1, K))
+
+
+def flops_inverse(K):
+    """The symmetric inverse from an LDL^T factor: the unit triangle's
+    inverse and the product L^-T D^-1 L^-1, of which only one triangle is
+    needed; about K^3 / 3 each (LAPACK's count for xPOTRI)."""
+    return 2 * K ** 3 // 3
 
 
 def flops_solve(K, nrhs=1):
@@ -673,12 +693,15 @@ def refine_checks(Ms, M32, r32):
     sync()
     rk, rp = rel_residual(Ms, sk, rs), rel_residual(Ms, sp, rs)
     check_residuals("ldlt_solve", rk, rp)
+    ldl_solve = ldl_solve_library(Fp, dp, r32, sp)
     out["ldlt_solve"] = {
         "max_abs_err": (sk - sp).abs().max().item(),
         "res_kernel_max": rk.max().item(), "res_plain_max": rp.max().item(),
         "growth_lanes": int((rp > LDLT_GROWTH).sum()),
         **timing(lambda: ldlt.ldlt_solve(Fp, dp, r32),
-                 lambda: ldlt.ldlt_solve_plain(Fp, dp, r32), None,
+                 lambda: ldlt.ldlt_solve_plain(Fp, dp, r32),
+                 library_ms("ldlt_solve (torch.linalg.ldl_solve on the "
+                            "unpivoted factor)", ldl_solve),
                  bound_ldlt("solve", B, K))}
     # the factor alone, held on the factor itself against the plain version
     # in float64, and through the residual of the pair a caller runs
@@ -701,6 +724,92 @@ def refine_checks(Ms, M32, r32):
                             "pivoted)", lambda: torch.linalg.ldl_factor(M32)),
                  bound_ldlt("factor", B, K))}
     return out
+
+
+def ldl_solve_library(F, d, b, x_plain):
+    """``torch.linalg.ldl_solve`` on the same unpivoted factor (LD = the
+    strict lower triangle of F' plus diag(d); pivots 1..K, no interchange)
+    as a function of no arguments: the one PyTorch call that computes what
+    ``ldlt_solve`` computes.  Prints its per-lane relative difference from
+    the plain version, or its error where the call fails."""
+    import torch
+    B, K = b.shape
+    LD = torch.tril(F.transpose(-1, -2), -1) + torch.diag_embed(d)
+    piv = torch.arange(1, K + 1, dtype=torch.int32,
+                       device=b.device).expand(B, K).contiguous()
+    fn = lambda: torch.linalg.ldl_solve(LD, piv, b[..., None])[..., 0]
+    try:
+        x = fn()
+        sync()
+        say("parity", f"torch.linalg.ldl_solve on the unpivoted factor B={B} "
+                      f"K={K}: rel vs plain "
+                      f"{lane_rel(x - x_plain, x_plain).max().item():.2e}")
+    except RuntimeError as err:
+        say("parity", f"torch.linalg.ldl_solve B={B} K={K} failed: {err}")
+    return fn
+
+
+def quasi_definite(B, nz, m, rng, dev):
+    """Random symmetric quasi-definite [[H, A'], [A, -D]] (H positive
+    definite, D a positive diagonal), float32 on the card."""
+    import torch
+    G = rng.normal(size=(B, nz, nz))
+    K = np.zeros((B, nz + m, nz + m))
+    K[:, :nz, :nz] = G @ G.transpose(0, 2, 1) / nz + np.eye(nz)
+    A = rng.normal(size=(B, m, nz))
+    K[:, :nz, nz:] = A.transpose(0, 2, 1)
+    K[:, nz:, :nz] = A
+    K[:, nz:, nz:] = -np.eye(m) * rng.uniform(0.1, 2.0, (B, m, 1))
+    return torch.as_tensor(K, dtype=torch.float32, device=dev)
+
+
+def bound_inverse(B, K):
+    """The symmetric factor and the symmetric inverse from it (about K^3
+    flops) against reading and writing K x K per matrix."""
+    return bound(B * (flops_factor(K) + flops_inverse(K)), B * 8 * K * K)
+
+
+def phase_parity_dist(drec, dev, results):
+    """ldlt_inverse at the dist path's shape (B*S = 1024 matrices, K=72):
+    on the dist batch's first-epoch ADMM KKTs (rho*1e3 equality rows, so
+    held against float64 by the F64 rule) and on random quasi-definite
+    matrices (LDLT_RTOL against the plain version)."""
+    import torch
+    from polympc_torch import dist_point as dp
+    from polympc_torch.ops import _build
+    from polympc_torch.ops import ldlt
+    from polympc_torch.parallel.dist_sqp import first_epoch_kkt
+    from polympc_torch.parallel.multihost import pin_segment_head
+    rng = np.random.default_rng(17)
+    dtr, bounds, settings = dp.dist_problem(dev)
+    x0 = torch.as_tensor(drec["x0s"], dtype=torch.float32, device=dev)
+    W0, P0 = dtr.rollout_guess(x0, d=dp.D)
+    K = first_epoch_kkt(dtr, pin_segment_head(dtr, bounds, x0), W0, P0,
+                        d=dp.D, settings=settings)
+    Kf = K.reshape(-1, K.shape[-1], K.shape[-1]).contiguous()
+    n, k = Kf.shape[0], Kf.shape[-1]
+    err = check_against_f64("ldlt_inverse", ldlt.ldlt_inverse,
+                            ldlt.ldlt_inverse_plain, (Kf,), ())
+    rel = check_tight("ldlt_inverse", ldlt.ldlt_inverse,
+                      ldlt.ldlt_inverse_plain,
+                      (quasi_definite(n, dtr.kz, dtr.ml, rng, dev),), (),
+                      LDLT_RTOL)
+    say("parity", f"ldlt_inverse random quasi-definite B={n} K={k}: rel "
+                  f"{rel:.2e} (tol {LDLT_RTOL})")
+    if _build.library().pt_ldlt_inverse_smem_bytes(k) != \
+            ldlt.inverse_smem_bytes(k):
+        raise RuntimeError("ldlt_inverse: the wrapper's fit rule and the "
+                           "kernel's shared memory disagree")
+    results["ldlt_inverse"] = {
+        **err, **timing(lambda: ldlt.ldlt_inverse(Kf),
+                        lambda: ldlt.ldlt_inverse_plain(Kf),
+                        library_ms("ldlt_inverse (torch.linalg.inv)",
+                                   lambda: torch.linalg.inv(Kf)),
+                        bound_inverse(n, k)),
+        "shape": f"B*S={n} K={k}", "random_rel_vs_plain": rel,
+        "smem_bytes": ldlt.inverse_smem_bytes(k)}
+    say("parity", f"ldlt_inverse at the dist batch's first-epoch KKTs: "
+                  f"{results['ldlt_inverse']}")
 
 
 def check_factor_against_f64(name, Fk, dk, M32):
@@ -852,6 +961,80 @@ def phase_race_car(rec, card, dev):
     return res, launches
 
 
+def compare_dist(drec, pre, lanes, tag):
+    """Print one route's lanes beside the JAX record of the same route
+    (``pre`` "" for "lu", "pallas_" for the kernel route) and raise if it
+    certifies more than DIST_SLACK lanes fewer."""
+    res = lanes["residual"]
+    if res.shape != drec[pre + "residual"].shape or \
+            not np.isfinite(res).all():
+        raise RuntimeError(f"dist path ({tag}): residuals of the wrong shape "
+                           "or non-finite")
+    mine, theirs = lanes["certified"], drec[pre + "certified"].astype(bool)
+    route = pre.rstrip("_") or "lu"
+    say("dist_kite_s8", f"{tag}: certified {int(mine.sum())}, status solved "
+                        f"{int((lanes['status'] == 1).sum())}, mean iters "
+                        f"{lanes['iters'].mean():.4f}; JAX record ({route} "
+                        f"route) certifies {int(theirs.sum())}, status "
+                        f"solved {int((drec[pre + 'status'] == 1).sum())}, "
+                        f"mean iters {drec[pre + 'iters'].mean():.4f}; "
+                        f"common {int((mine & theirs).sum())}; port only "
+                        f"{np.nonzero(mine & ~theirs)[0].tolist()}; record "
+                        f"only {np.nonzero(~mine & theirs)[0].tolist()}; "
+                        f"lanes whose status differs "
+                        f"{int((lanes['status'] != drec[pre + 'status']).sum())}")
+    if mine.sum() < int(theirs.sum()) - DIST_SLACK:
+        raise RuntimeError(f"dist path ({tag}) certifies {int(mine.sum())}, "
+                           f"fewer than the record's {int(theirs.sum())} - "
+                           f"{DIST_SLACK}")
+
+
+def dist_lu_route(drec, dev):
+    """The same lanes through the "lu" route (torch.linalg.inv): held
+    against the record's "lu" fields, beside the kernel route against its
+    "pallas" fields, it shows how much of a status difference is the
+    route's float32 rounding."""
+    import torch
+    from polympc_torch import dist_point as dp
+    from polympc_torch.parallel.multihost import make_batch_dist_solver
+    dtr, bounds, settings = dp.dist_problem(dev, torch.float32, "lu")
+    x0 = torch.as_tensor(drec["x0s"], dtype=torch.float32, device=dev)
+    W0, P0 = dtr.rollout_guess(x0, d=dp.D)
+    out = make_batch_dist_solver(dtr, bounds, settings, d=dp.D)(x0, W0, P0)
+    return dp.summarize(out, dp.certify(dtr, bounds, x0, out))
+
+
+def phase_dist(drec, card, dev):
+    from polympc_torch import dist_point as dp
+    B = drec["x0s"].shape[0]
+    (extra, lanes), launches = run_path(
+        "dist_kite_s8", lambda: dp.run(B, dev, x0s=drec["x0s"]),
+        ("ldlt_inverse",))
+    b1 = extra.pop("b1")
+    extra["certified_solves_per_s"] = extra["certified"] / \
+        extra["wall_s_per_batch"]
+    say("dist_kite_s8", f"{card}: {extra}")
+    compare_dist(drec, "pallas_", lanes, "kernel route")
+    lu, lu_lanes = dist_lu_route(drec, dev)
+    compare_dist(drec, "", lu_lanes, "lu route")
+    say("dist_kite_s8", f"lanes whose status differs between the port's "
+                        f"two routes {int((lu_lanes['status'] != lanes['status']).sum())}, "
+                        f"between the record's two routes "
+                        f"{int((drec['status'] != drec['pallas_status']).sum())}")
+    say("dist_kite_s8", f"B=1 (x0 {dp.B1_X0}), solve wall after a short "
+                        f"warm-up: lu {b1['lu']}, kernel {b1['kernel']}; "
+                        f"JAX record lu: status {int(drec['b1_status'])}, "
+                        f"iters {int(drec['b1_iters'])}, violation "
+                        f"{float(drec['b1_violation']):.3e}; pallas: status "
+                        f"{int(drec['b1_pallas_status'])}, iters "
+                        f"{int(drec['b1_pallas_iters'])}, violation "
+                        f"{float(drec['b1_pallas_violation']):.3e}")
+    for r, v in b1.items():
+        if not np.isfinite(v["violation"]):
+            raise RuntimeError(f"dist B=1 ({r}): non-finite violation")
+    return extra, launches
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -865,6 +1048,8 @@ KERNELS = (
      "polympc_tpu/ops/ldlt.py:315"),
     ("admm_epoch", "polympc_torch/csrc/admm_epoch.cu",
      "polympc_tpu/ops/admm_epoch.py:151"),
+    ("ldlt_inverse", "polympc_torch/csrc/ldlt.cu",
+     "polympc_tpu/ops/ldlt.py:344"),
 )
 
 
@@ -874,14 +1059,17 @@ def main():
     import_port()
     ref = dict(np.load(REFERENCE))
     rec = dict(np.load(HEADLINE_REFERENCE))
+    drec = dict(np.load(DIST_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
     phase_parity_race_car("cuda", parity)
+    phase_parity_dist(drec, "cuda", parity)
     paths = {"kite": phase_kite(ref, smi, "cuda"),
              "spline_qp": phase_spline(rec, smi, "cuda")[1],
              "frame_transform": phase_frame(rec, smi, "cuda")[1],
-             "race_car": phase_race_car(rec, smi, "cuda")[1]}
+             "race_car": phase_race_car(rec, smi, "cuda")[1],
+             "dist_kite_s8": phase_dist(drec, smi, "cuda")[1]}
     kernels = []
     for n, src, rep in KERNELS:
         by_path = {p: c[n] for p, c in paths.items() if c[n]}

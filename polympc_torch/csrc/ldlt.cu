@@ -5,11 +5,14 @@
 //   polympc_tpu/ops/ldlt.py : ldlt_factor       (_factor_body)
 //   polympc_tpu/ops/ldlt.py : ldlt_factor_solve (_factor_solve_body)
 //   polympc_tpu/ops/ldlt.py : ldlt_solve        (_solve_body)
+//   polympc_tpu/ops/ldlt.py : ldlt_inverse      (_factor_inverse_body)
 // and computes what they compute: for each (K, K) matrix of a batch, the
 // unpivoted packed LDL^T (F holds L^T in its strict upper triangle,
 // F[i][c] = L[c][i]; d the pivots), alone or with one
 // forward/diagonal/backward solve; or the solve alone against a given
-// packed factor.  The factor stays
+// packed factor; or the factor followed by the identity solved as a block
+// of K right-hand sides, written out as the explicit inverse.  The factor
+// stays
 // unpivoted on purpose: the certify pass feeds it indefinite Newton-KKT
 // matrices and its iterative-refinement sweeps are tuned to this factor's
 // growth (nlp/refine.py).
@@ -18,8 +21,9 @@
 // dependent rank-1 updates and each solve 2K dependent pivot steps, each
 // ending in a barrier (one __syncthreads per pivot); per matrix the card
 // moves ~2*K*K*4 bytes (140 KB at K = 132, 218 KB at the race car's
-// K = 165) and does ~K^3/3 FMAs, so at B = 512 the bound is some 0.02-0.03
-// ms (bytes) against the kernels' measured tenths of a millisecond.
+// K = 165) and does ~K^3/3 flops (the symmetric factor), so at B = 512 the
+// bound is some 0.02-0.03 ms (bytes) against the kernels' measured tenths
+// of a millisecond.
 //
 // What the design does about it: one thread block per matrix keeps the
 // whole matrix in dynamic shared memory (row stride K+1, so the column walks
@@ -27,7 +31,19 @@
 // shared-memory update plus one barrier, and three matrices share an SM at
 // K = 132 to hide each other's barriers.
 //
-// Layouts (batch-major, contiguous, float): M, F (B, K, K); b, x, d (B, K).
+// The inverse (the per-segment Schur elimination of the distributed SQP,
+// parallel/horizon.py, one call per ADMM epoch on B*S matrices of K = 72)
+// needs ~K^3 flops (the symmetric factor, then the symmetric inverse from
+// it) against 2*K*K*4 bytes moved: at 1024 matrices the bytes bound it,
+// ~0.013 ms.  The kernel does more than that: it updates the whole
+// trailing block at each pivot and sweeps all K columns forward and
+// backward in full (~2K^3/3 + 2K^3 flops).  The same one block per matrix
+// holds the factor and the K x K right-hand-side block in shared memory
+// ((2K^2 + 3K) * 4 bytes: 42 KB at K = 72, K up to 169 fits in 227 KB);
+// each sweep step updates K columns at once between two barriers.
+//
+// Layouts (batch-major, contiguous, float): M, F, Minv (B, K, K); b, x, d
+// (B, K).
 #include <cuda_runtime.h>
 
 #include "ldlt_device.cuh"
@@ -101,6 +117,31 @@ __global__ void ldlt_solve_kernel(const T* __restrict__ F,
   for (int r = threadIdx.x; r < K; r += blockDim.x) x[off + r] = y[r];
 }
 
+// Explicit inverse: the factor (row stride K+1), then the identity as K
+// right-hand sides (Y[c][r], column c of the inverse, row stride K+1) swept
+// forward, divided by d and swept backward; Minv[r][c] = Y[c][r].
+template <typename T>
+__global__ void ldlt_inverse_kernel(const T* __restrict__ M,
+                                    T* __restrict__ Minv, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Fs = reinterpret_cast<T*>(smem_raw);
+  const int ldk = K + 1;
+  T* ds = Fs + size_t(K) * ldk;
+  T* Y = ds + K;
+  const size_t off = size_t(blockIdx.x) * K;
+  load_matrix(Fs, M + off * K, K, ldk);
+  for (int idx = threadIdx.x; idx < K * K; idx += blockDim.x) {
+    const int c = idx / K, r = idx % K;
+    Y[c * ldk + r] = T(r == c);
+  }
+  ptk::factor_block(Fs, ds, K, ldk);
+  ptk::solve_block(Fs, ds, K, ldk, Y, ldk, K);
+  for (int idx = threadIdx.x; idx < K * K; idx += blockDim.x) {
+    const int r = idx / K, c = idx % K;
+    Minv[off * K + idx] = Y[c * ldk + r];
+  }
+}
+
 template <typename Kern>
 int allow_smem(Kern kernel, size_t smem) {
   return int(cudaFuncSetAttribute(
@@ -140,6 +181,19 @@ int pt_ldlt_solve_f32(const float* F, const float* d, const float* b,
   if (int rc = allow_smem(ldlt_solve_kernel<float>, smem)) return rc;
   ldlt_solve_kernel<float><<<B, threads, smem, (cudaStream_t)stream>>>(
       F, d, b, x, K);
+  return int(cudaGetLastError());
+}
+
+size_t pt_ldlt_inverse_smem_bytes(int K) {
+  return (2 * size_t(K) * (K + 1) + size_t(K)) * sizeof(float);
+}
+
+int pt_ldlt_inverse_f32(const float* M, float* Minv, int B, int K,
+                        int threads, void* stream) {
+  const size_t smem = pt_ldlt_inverse_smem_bytes(K);
+  if (int rc = allow_smem(ldlt_inverse_kernel<float>, smem)) return rc;
+  ldlt_inverse_kernel<float><<<B, threads, smem, (cudaStream_t)stream>>>(
+      M, Minv, K);
   return int(cudaGetLastError());
 }
 

@@ -28,7 +28,8 @@ SMEM_LIMIT_BYTES = 227 * 1024
 # Launch count of each kernel: its wrapper adds one where it launches the
 # kernel on the card and nowhere else (the plain versions do not count).
 LAUNCHES = {"bbt_epoch": 0, "bbt_solve": 0, "admm_epoch": 0,
-            "ldlt_factor": 0, "ldlt_factor_solve": 0, "ldlt_solve": 0}
+            "ldlt_factor": 0, "ldlt_factor_solve": 0, "ldlt_solve": 0,
+            "ldlt_inverse": 0}
 
 
 def reset_launches():
@@ -55,6 +56,8 @@ _SIGNATURES = {
     "pt_ldlt_factor_solve_f32": (_I, [_P] * 5 + [_I, _I, _I, _P]),
     "pt_ldlt_solve_f32": (_I, [_P] * 4 + [_I, _I, _I, _P]),
     "pt_ldlt_smem_bytes": (_Z, [_I]),
+    "pt_ldlt_inverse_f32": (_I, [_P] * 2 + [_I, _I, _I, _P]),
+    "pt_ldlt_inverse_smem_bytes": (_Z, [_I]),
     "pt_error_string": (ctypes.c_char_p, [_I]),
 }
 

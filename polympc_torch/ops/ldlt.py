@@ -1,6 +1,6 @@
-"""Batched unpivoted LDL^T factor, factor+solve and solve — the port of
-polympc_tpu/ops/ldlt.py (``ldlt_factor``, ``ldlt_factor_solve``,
-``ldlt_solve``).
+"""Batched unpivoted LDL^T factor, factor+solve, solve and explicit inverse
+— the port of polympc_tpu/ops/ldlt.py (``ldlt_factor``,
+``ldlt_factor_solve``, ``ldlt_solve``, ``ldlt_inverse``).
 
 Storage convention (packed, one square + one diagonal per instance), as in
 the JAX package:
@@ -25,8 +25,9 @@ import torch
 
 from polympc_torch.ops import _build
 
-__all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve",
-           "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain"]
+__all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve", "ldlt_inverse",
+           "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain",
+           "ldlt_inverse_plain", "inverse_smem_bytes"]
 
 _THREADS = 256
 
@@ -59,6 +60,27 @@ def ldlt_solve_plain(F, d, b):
     x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True,
                                       unitriangular=True)
     return x[..., 0]
+
+
+def ldlt_inverse_plain(M):
+    """Explicit inverse of each (K, K) matrix through its packed factor: the
+    identity swept forward, divided by d and swept backward (the JAX
+    ``_factor_inverse_body``).  (B, K, K) -> (B, K, K)."""
+    F, d = ldlt_factor_plain(M)
+    L = torch.triu(F, diagonal=1).transpose(-1, -2)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    Y = torch.linalg.solve_triangular(L, eye.expand_as(M), upper=False,
+                                      unitriangular=True)
+    Y = Y / d[..., None]
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), Y, upper=True,
+                                         unitriangular=True)
+
+
+def inverse_smem_bytes(K: int) -> int:
+    """Shared memory of one block of the inverse kernel: the factor and the
+    K right-hand sides, each K x (K+1) floats, and the K pivots.  K up to
+    169 fits a Hopper block's 227 KB."""
+    return (2 * K * (K + 1) + K) * 4
 
 
 def ldlt_factor_solve_plain(M, b):
@@ -169,3 +191,34 @@ def ldlt_solve(F, d, b):
     _build.check(rc, "ldlt_solve")
     _build.LAUNCHES["ldlt_solve"] += 1
     return x
+
+
+def ldlt_inverse(M):
+    """Batched explicit inverse of symmetric quasi-definite (B, K, K)
+    matrices via the unpivoted LDL^T.  Returns (B, K, K), unpadded.
+
+    CUDA float32 launches the ``csrc/ldlt.cu`` inverse kernel (one thread
+    block per matrix; the factor and the K right-hand sides in shared
+    memory, so a K whose block does not fit raises, naming the shape); CPU
+    takes the plain version."""
+    if M.dim() != 3 or M.shape[1] != M.shape[2]:
+        raise ValueError(f"ldlt_inverse: expected (B, K, K), got "
+                         f"{tuple(M.shape)}")
+    B, K = M.shape[0], M.shape[1]
+    if M.device.type == "cpu":
+        return ldlt_inverse_plain(M)
+    if M.device.type != "cuda":
+        raise ValueError(f"ldlt_inverse: no kernel for {M.device}")
+    _check_cuda("ldlt_inverse", M)
+    _build.check_smem(inverse_smem_bytes(K), f"ldlt_inverse at K={K}")
+    lib = _build.library()
+    M = M.contiguous()
+    out = torch.empty_like(M)
+    if B == 0:
+        return out
+    with torch.cuda.device(M.device):
+        rc = lib.pt_ldlt_inverse_f32(M.data_ptr(), out.data_ptr(), B, K,
+                                     _THREADS, _build.stream_of(M))
+    _build.check(rc, "ldlt_inverse")
+    _build.LAUNCHES["ldlt_inverse"] += 1
+    return out

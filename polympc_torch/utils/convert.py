@@ -1,5 +1,6 @@
 """Carry state across from the JAX package: its parameter dicts,
-``NLPBounds``, ``SQPSolution``, ``QPData`` and plain KKT/QP arrays, given as
+``NLPBounds``, ``SQPSolution``, ``QPData``, ``DistBounds``, the
+``dist_sqp_solve`` output dict and plain KKT/QP arrays, given as
 numpy arrays (or anything ``numpy.asarray`` takes), become the port's types
 on a chosen device and dtype, so both packages can compute on identical
 inputs.  Every function puts its tensors on the card unless the caller
@@ -10,9 +11,13 @@ import numpy as np
 import torch
 
 from polympc_torch.nlp.types import NLPBounds, SQPSolution
+from polympc_torch.parallel.dist_sqp import DistBounds
 from polympc_torch.qp.types import QPData
 
-__all__ = ["tensor", "params", "bounds", "sqp_solution", "qp_data"]
+__all__ = ["tensor", "params", "bounds", "sqp_solution", "qp_data",
+           "dist_bounds", "dist_solution"]
+
+_DIST_INTS = ("status", "iters", "qp_iters", "qp_status")
 
 
 def tensor(a, dtype=torch.float64, device="cuda"):
@@ -51,3 +56,24 @@ def sqp_solution(sol, dtype=torch.float64, device="cuda") -> SQPSolution:
             t = t.to(torch.int32)
         out[f] = t
     return SQPSolution(**out)
+
+
+def dist_bounds(b, dtype=torch.float64, device="cuda") -> DistBounds:
+    """Anything with lbw/ubw/lbp/ubp/gl/gu fields -> the port's
+    DistBounds."""
+    return DistBounds(*(tensor(getattr(b, f), dtype, device)
+                        for f in DistBounds._fields))
+
+
+def dist_solution(out, dtype=torch.float64, device="cuda") -> dict:
+    """A (batched) ``dist_sqp_solve`` output dict -> the port's: every
+    array a tensor, status and iteration counts int32, a missing trace
+    None."""
+    res = {}
+    for k, v in out.items():
+        if v is None:
+            res[k] = None
+            continue
+        t = tensor(v, dtype, device)
+        res[k] = t.to(torch.int32) if k in _DIST_INTS else t
+    return res

@@ -61,7 +61,7 @@ def jax_parking():
                         JSegmentedBasis(JChebyshev(5), 2))
 
 
-def torch_parking():
+def torch_parking_ocp():
     """The JAX package's parking_ocp(nonlinear_constraint=True), in torch:
     time-scaled kinematic car (p0 scales the dynamics, Mayer = p0) with the
     node inequality g0 = u0^2 cos(u1)."""
@@ -78,9 +78,13 @@ def torch_parking():
     def ineq(x, u, p, d, t):
         return (u[0] ** 2 * torch.cos(u[1]))[None]
 
-    ocp = OCP(dynamics=dynamics, nx=3, nu=2, np_=1, nd=1, mayer=mayer,
-              ineq=ineq, ng=1)
-    return transcribe(ocp, SegmentedBasis(Chebyshev(5), 2))
+    return OCP(dynamics=dynamics, nx=3, nu=2, np_=1, nd=1, mayer=mayer,
+               ineq=ineq, ng=1)
+
+
+def torch_parking():
+    """The parking OCP transcribed on Chebyshev(5) x 2 segments."""
+    return transcribe(torch_parking_ocp(), SegmentedBasis(Chebyshev(5), 2))
 
 
 def lane_points(tr, B, seed, scale=0.3):

@@ -188,3 +188,40 @@ def test_kernels_refuse_float64(dev):
     with pytest.raises(TypeError, match="float32"):
         ldlt.ldlt_factor_solve(M, torch.ones((1, 4), dtype=torch.float64,
                                              device=dev))
+
+
+def _quasi_definite(batch, nz, m, seed):
+    """Symmetric quasi-definite [[H, A'], [A, -D]], float64 numpy."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(batch, nz, nz))
+    K = np.zeros((batch, nz + m, nz + m))
+    K[:, :nz, :nz] = G @ G.transpose(0, 2, 1) / nz + np.eye(nz)
+    A = rng.normal(size=(batch, m, nz))
+    K[:, :nz, nz:] = A.transpose(0, 2, 1)
+    K[:, nz:, :nz] = A
+    K[:, nz:, nz:] = -np.eye(m) * rng.uniform(0.1, 2.0, (batch, m, 1))
+    return K
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz,m", [(5, 3), (42, 30), (99, 70)],
+                         ids=["K8", "K72", "K169"])
+def test_ldlt_inverse_kernel_matches_plain(nz, m, dev):
+    M = torch.as_tensor(_quasi_definite(256, nz, m, seed=nz),
+                        dtype=torch.float32, device=dev)
+    _build.reset_launches()
+    got = ldlt.ldlt_inverse(M)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldlt_inverse"] == 1
+    want = ldlt.ldlt_inverse_plain(M)
+    rel = ((got - want).abs().amax((1, 2))
+           / want.abs().amax((1, 2))).max().item()
+    assert rel <= 1e-4, rel
+    assert _build.library().pt_ldlt_inverse_smem_bytes(nz + m) == \
+        ldlt.inverse_smem_bytes(nz + m)
+
+
+@pytest.mark.cuda
+def test_ldlt_inverse_refuses_a_block_too_large(dev):
+    with pytest.raises(ValueError, match="K=170"):
+        ldlt.ldlt_inverse(torch.eye(170, device=dev)[None])

@@ -8,6 +8,10 @@ JAX package's Pallas kernels, which run here in interpret mode.
   * the plain LDL^T factor + solve and solve against ``ldlt_factor_solve``
     / ``ldlt_solve`` at K=132 (the refine matrix size of the kite), to
     1e-10;
+  * the plain explicit inverse against ``ldlt_inverse`` at (4, 72, 72)
+    quasi-definite (the kite's per-segment dist KKT size), to 1e-10
+    relative in float64 and 1e-4 in float32, and against
+    ``numpy.linalg.inv``;
   * the wrappers' dispatch: a CPU tensor takes the plain version and counts
     no launch; a device without a kernel raises.
 
@@ -230,3 +234,64 @@ def test_ldlt_wrappers_check_shapes():
     with pytest.raises(ValueError):
         ldlt.ldlt_solve(M, b[:, :4], b)
 
+
+def _quasi_definite(batch, nz, m, seed):
+    """Symmetric quasi-definite (B, nz+m, nz+m) [[H, A'], [A, -D]] with H
+    positive definite and D a positive diagonal: the per-segment ADMM KKT
+    form the distributed SQP inverts (nz=42, m=30 at the kite's S=8)."""
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(batch, nz, nz))
+    K = np.zeros((batch, nz + m, nz + m))
+    K[:, :nz, :nz] = G @ G.transpose(0, 2, 1) / nz + np.eye(nz)
+    A = rng.normal(size=(batch, m, nz))
+    K[:, :nz, nz:] = A.transpose(0, 2, 1)
+    K[:, nz:, :nz] = A
+    K[:, nz:, nz:] = -np.eye(m) * rng.uniform(0.1, 2.0, (batch, m, 1))
+    return K
+
+
+@pytest.fixture(scope="module")
+def inverse_case():
+    """(4, 72, 72) quasi-definite matrices and the JAX package's Pallas
+    ldlt_inverse of them (interpret mode) in float64 and float32."""
+    M = _quasi_definite(4, 42, 30, seed=8)
+    return {"M": M,
+            "f64": np.asarray(jldlt.ldlt_inverse(jnp.asarray(M))),
+            "f32": np.asarray(jldlt.ldlt_inverse(
+                jnp.asarray(M, jnp.float32)))}
+
+
+def _lane_rel(got, want):
+    d = np.abs(got - want).reshape(got.shape[0], -1).max(1)
+    return d / np.abs(want).reshape(want.shape[0], -1).max(1)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)],
+                         ids=["f64", "f32"])
+def test_plain_ldlt_inverse_matches_jax(inverse_case, dtype, tol):
+    _build.reset_launches()
+    M = inverse_case["M"]
+    got = ldlt.ldlt_inverse(torch.tensor(M, dtype=dtype))
+    assert got.shape == M.shape and got.dtype == dtype
+    want = inverse_case["f64" if dtype == torch.float64 else "f32"]
+    assert _lane_rel(got.double().numpy(), want.astype(np.float64)).max() \
+        <= tol
+    assert _lane_rel(got.double().numpy(), np.linalg.inv(M)).max() <= tol
+    assert _build.LAUNCHES["ldlt_inverse"] == 0
+
+
+def test_ldlt_inverse_wrapper_checks():
+    """No kernel on a device without one; a non-square input raises; the
+    fit rule admits K up to 169 in a Hopper block and refuses, naming the
+    shape, above."""
+    with pytest.raises(ValueError, match="no kernel"):
+        ldlt.ldlt_inverse(torch.empty((2, 8, 8), device="meta"))
+    with pytest.raises(ValueError, match=r"\(B, K, K\)"):
+        ldlt.ldlt_inverse(torch.zeros((2, 8, 7), dtype=torch.float64))
+    assert ldlt.inverse_smem_bytes(169) <= _build.SMEM_LIMIT_BYTES
+    assert ldlt.inverse_smem_bytes(170) > _build.SMEM_LIMIT_BYTES
+    assert ldlt.inverse_smem_bytes(72) == (2 * 72 * 73 + 72) * 4
+    with pytest.raises(ValueError, match="K=170"):
+        _build.check_smem(ldlt.inverse_smem_bytes(170), "ldlt_inverse at "
+                          "K=170")

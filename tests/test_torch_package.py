@@ -212,5 +212,10 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.basis.splines.CubicSpline",
                  "polympc_torch.control.path.track_from_curvature",
                  "polympc_torch.models.race_car.make_wave_track",
-                 "polympc_torch.headline_table.race_car"):
+                 "polympc_torch.headline_table.race_car",
+                 "polympc_torch.parallel.dist_sqp.dist_bounds",
+                 "polympc_torch.utils.convert.dist_bounds",
+                 "polympc_torch.utils.convert.dist_solution",
+                 "polympc_torch.dist_point.dist_problem",
+                 "polympc_torch.dist_point.run"):
         assert qual in seen, qual

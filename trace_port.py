@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Where the time goes in the port's batched paths, on one NVIDIA card.
 
-    python3 trace_port.py [kite] [spline] [frame] [race_car]
+    python3 trace_port.py [kite] [spline] [frame] [race_car] [dist_kite_s8]
 
-Each named path (all four by default) is built at the widths that
+Each named path (all five by default) is built at the widths that
 chip_smoke.py drives: bench's certified kite batch (B=512), the spline QP
-batch (B=4096), the frame-transform batch (B=4096) and the certified
-race-car batch (B=512).  Its timed unit runs once to warm up, once timed on
-the host clock (ending in torch.cuda.synchronize()), then once under
-torch.profiler with CPU and CUDA activities.  Per path one JSON line:
+batch (B=4096), the frame-transform batch (B=4096), the certified
+race-car batch (B=512) and the certified horizon-partitioned kite batch
+(S=8 segments, B=128, polympc_torch/dist_point.py), cut to its first
+DIST_TRACE_ITERS SQP iterations: every lane is still active there and
+every inner QP runs to its 400-iteration cap, so each iteration does the
+same work, while the whole 60-iteration batch under the profiler outlasts
+15 minutes.  Its timed unit runs once to warm up, once timed on the host
+clock (ending in torch.cuda.synchronize()), then once under torch.profiler
+with CPU and CUDA activities.  Per path one JSON line:
 
   wall_ms           the unprofiled wall of one unit;
   profiled_wall_ms  the wall under the profiler (which inflates host time);
@@ -29,12 +34,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+DIST_TRACE_ITERS = 3
 
 
 def units(dev):
     """name -> a function of no arguments running one batched unit."""
     import torch
-    from polympc_torch import headline, headline_table as ht
+    from polympc_torch import dist_point, headline, headline_table as ht
     from polympc_torch.control.path import project_on_path_newton
     from polympc_torch.qp import box_admm_solve
 
@@ -53,7 +59,9 @@ def units(dev):
         return ht.race_car_batch_fn(tr, bounds, solve, sol, 512)
 
     return {"kite": lambda: headline.batch_fn(512, dev), "spline": spline,
-            "frame": frame, "race_car": race_car}
+            "frame": frame, "race_car": race_car,
+            "dist_kite_s8": lambda: dist_point.batch_fn(
+                128, dev, max_iter=DIST_TRACE_ITERS)}
 
 
 def busy_ms(intervals):
