@@ -14,7 +14,11 @@ Phases, each printing its own lines and raising on failure:
      its plain PyTorch version on the same inputs on the card, with the
      time of each (median of 10, CUDA events), the least time the card
      could take for the same work (bound) and, where one PyTorch call
-     computes the same function, that call's time (median of 3);
+     computes the same function, that call's time (median of 3); the BBT
+     kernels and the explicit inverse also against the PyTorch mirror of
+     their own algorithm (explicit block inverses by a Gauss-Jordan
+     sweep), and the BBT epoch timed at 128 and 256 threads per block at
+     the kite's and the race car's shapes;
   4. main paths, each with the launch counts set to 0 just before it and
      read just after:
        kite: bench.py's certified kite batch (B=512), one warm-up then the
@@ -70,6 +74,15 @@ SOLVE_RTOL = 1e-4
 # may be at most 10x the plain float32 version's (or below 1e-4).
 F64_RATIO = 10.0
 F64_FLOOR = 1e-4
+# The BBT kernels and the explicit inverse compute by another algorithm
+# than their plain versions (they invert blocks by an in-place Gauss-Jordan
+# sweep and apply the inverses; the plain versions substitute through
+# LDL^T factors).  Against the PyTorch mirror of their own algorithm
+# (ops.bbt_kernel.bbt_epoch_mirror, bbt_solve_mirror,
+# ops.ldlt.sweep_inverse_mirror), on the same well-conditioned inputs, the
+# same operations differ only in the order of their sums: relative
+# inf-norm 1e-5 per lane.
+MIRROR_RTOL = 1e-5
 # The LDL^T kernels are held to the plain version element by element
 # (relative inf-norm 1e-4 per lane) on well-conditioned matrices of the
 # main path's size.  The refine Newton-KKT matrices are indefinite, so the
@@ -145,22 +158,29 @@ def phase_build():
 
 
 def cuda_ms(fn, reps=10):
-    """Median time of fn() on the card over reps runs, after one warm-up."""
+    """Median time of fn() on the card over reps samples, after one
+    warm-up.  A sample times back-to-back calls between two CUDA events,
+    as many as fill about 2 ms (at most 20, at least 1), so that the host's
+    time to launch a short kernel hides behind the queue instead of adding
+    to the kernel's."""
     import torch
     if not torch.cuda.is_available():
         return float("nan")
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def sample(calls):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(calls):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        return a.elapsed_time(b) / calls
+
+    calls = int(min(20, max(1, 2.0 // max(sample(1), 1e-3))))
+    return float(np.median([sample(calls) for _ in range(reps)]))
 
 
 def sync():
@@ -261,13 +281,12 @@ def phase_parity(ref, dev):
     import torch
     from polympc_torch.headline import kite_problem
     from polympc_torch.nlp.hessian import regularize
-    from polympc_torch.nlp.refine import newton_system
     from polympc_torch.ops import bbt_kernel as bk
     from polympc_torch.ops import ldlt
     from polympc_torch.ops.structure import (
         bbt_structure, gather_blocks, permute_vec, random_bbt_kkt,
         unpermute_vec)
-    from polympc_torch.parallel import make_batch_solver, pin_initial_state
+    from polympc_torch.parallel import pin_initial_state
     from polympc_torch.qp.box_admm import _build_kkt, penalties
     from polympc_torch.qp.types import QPData
 
@@ -306,12 +325,16 @@ def phase_parity(ref, dev):
         case = random_epoch(s_, B, rng, dev)
         rel = check_tight("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
                           case, (s_, *ep), EPOCH_RTOL)
+        relm = check_tight("bbt_epoch (mirror)", bk.bbt_epoch,
+                           bk.bbt_epoch_mirror, case, (s_, *ep), MIRROR_RTOL)
         say("parity", f"bbt_epoch random quasi-definite {tag} S={s_.S} "
-                      f"k={s_.k} a={s_.a}: rel {rel:.2e} (tol {EPOCH_RTOL})")
+                      f"k={s_.k} a={s_.a}: rel {rel:.2e} (tol {EPOCH_RTOL}); "
+                      f"against its mirror {relm:.2e} (tol {MIRROR_RTOL})")
     results["bbt_epoch"] = {
         **err, **timing(lambda: bk.bbt_epoch(*kite, st, *ep),
                         lambda: bk.bbt_epoch_plain(*kite, st, *ep), None,
-                        bound_bbt_epoch(st, B, qs.check_every))}
+                        bound_bbt_epoch(st, B, qs.check_every)),
+        **by_threads(bk, kite, st, ep)}
     say("parity", f"bbt_epoch at the first kite iterate B={B} {st.S}x{st.k} "
                   f"nx={st.nx} iters={qs.check_every}: {results['bbt_epoch']}")
 
@@ -328,10 +351,13 @@ def phase_parity(ref, dev):
     bord = (*gather_blocks(Mb, st_b), permute_vec(bb, st_b, 0.0))
     rel = check_tight("bbt_solve", bk.bbt_solve, bk.bbt_solve_plain, bord,
                       (st_b,), SOLVE_RTOL)
+    relm = check_tight("bbt_solve (mirror)", bk.bbt_solve,
+                       bk.bbt_solve_mirror, bord, (st_b,), MIRROR_RTOL)
     res = rel_residual(Mb, unpermute_vec(bk.bbt_solve(*bord, st_b), st_b),
                        bb).max().item()
     say("parity", f"bbt_solve bordered random quasi-definite S={st_b.S} "
                   f"k={st_b.k} a={st_b.a}: rel {rel:.2e} (tol {SOLVE_RTOL}), "
+                  f"against its mirror {relm:.2e} (tol {MIRROR_RTOL}), "
                   f"residual against the dense KKT {res:.2e}")
     b_dense = unpermute_vec(kite_solve[4], st)
     results["bbt_solve"] = {
@@ -346,15 +372,7 @@ def phase_parity(ref, dev):
                   f"{results['bbt_solve']}")
 
     # ---- kernels 3 and 4: refine Newton matrices at the fp32 solution ----
-    sols = make_batch_solver(tr, bounds, prm, settings,
-                             rollout_guess=True)(x0)
-    prm64 = tr.params(d=[0.05], t0=0.0, tf=2.0, dtype=torch.float64,
-                      device=dev)
-    b64 = bounds._replace(**{f: getattr(bounds, f).double()
-                             for f in bounds._fields})
-    bnd64, _ = pin_initial_state(tr, b64, x0.double())
-    Ms, rs = newton_system(nlp, sols.x, sols.lam, bnd64, prm64,
-                           matrix_dtype=torch.float32)
+    Ms, rs = kite_refine_inputs(x0, dev)
     M32, r32 = Ms.float().contiguous(), rs.float().contiguous()
     K = M32.shape[-1]
     # well-conditioned matrices of the same size: dense, symmetric,
@@ -377,6 +395,37 @@ def phase_parity(ref, dev):
         say("parity", f"{name} at the kite's refine matrices B={B} K={K}: "
                       f"{out[name]}")
     return results
+
+
+def kite_refine_inputs(x0, dev):
+    """The kite's certify Newton-KKT matrices (K=132, float32) and
+    right-hand sides (float64) at the batch's fp32 solution from x0."""
+    import torch
+    from polympc_torch.headline import kite_problem
+    from polympc_torch.nlp.refine import newton_system
+    from polympc_torch.parallel import make_batch_solver, pin_initial_state
+    tr, bounds, prm, settings = kite_problem(dev)
+    sols = make_batch_solver(tr, bounds, prm, settings,
+                             rollout_guess=True)(x0)
+    prm64 = tr.params(d=[0.05], t0=0.0, tf=2.0, dtype=torch.float64,
+                      device=dev)
+    b64 = bounds._replace(**{f: getattr(bounds, f).double()
+                             for f in bounds._fields})
+    bnd64, _ = pin_initial_state(tr, b64, x0.double())
+    return newton_system(tr.nlp, sols.x, sols.lam, bnd64, prm64,
+                         matrix_dtype=torch.float32)
+
+
+def by_threads(bk, args, st, ep):
+    """The BBT epoch's time at 128 and 256 threads per block on the same
+    inputs, and the block size its wrapper chooses (epoch_threads)."""
+    ms = {t: cuda_ms(lambda: bk._launch_epoch(*args, st, *ep, t))
+          for t in bk._THREADS}
+    chosen = bk.epoch_threads(st)
+    say("parity", f"bbt_epoch S={st.S} k={st.k}: {ms[128]:.4f} ms at 128 "
+                  f"threads, {ms[256]:.4f} ms at 256; the wrapper takes "
+                  f"{chosen}")
+    return {"ms_by_threads": ms, "threads": chosen}
 
 
 def bound(flops, nbytes):
@@ -635,14 +684,19 @@ def phase_parity_race_car(dev, results):
     ep = (qs.sigma, qs.alpha, qs.check_every)
     err = check_against_f64("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
                             epoch, (st, *ep))
-    rel = check_tight("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
-                      random_epoch(st, B, rng, dev), (st, *ep), EPOCH_RTOL)
+    case = random_epoch(st, B, rng, dev)
+    rel = check_tight("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain, case,
+                      (st, *ep), EPOCH_RTOL)
+    relm = check_tight("bbt_epoch (mirror)", bk.bbt_epoch,
+                       bk.bbt_epoch_mirror, case, (st, *ep), MIRROR_RTOL)
     say("parity", f"bbt_epoch random quasi-definite race-car S={st.S} "
-                  f"k={st.k}: rel {rel:.2e} (tol {EPOCH_RTOL})")
+                  f"k={st.k}: rel {rel:.2e} (tol {EPOCH_RTOL}); against its "
+                  f"mirror {relm:.2e} (tol {MIRROR_RTOL})")
     results["bbt_epoch"]["race_car"] = {
         **err, **timing(lambda: bk.bbt_epoch(*epoch, st, *ep),
                         lambda: bk.bbt_epoch_plain(*epoch, st, *ep), None,
                         bound_bbt_epoch(st, B, qs.check_every)),
+        **by_threads(bk, epoch, st, ep),
         "shape": f"B={B} S={st.S} k={st.k} nx={st.nx} "
                  f"iters={qs.check_every}"}
     say("parity", f"bbt_epoch at the race car's first warm epoch: "
@@ -790,16 +844,28 @@ def phase_parity_dist(drec, dev, results):
     n, k = Kf.shape[0], Kf.shape[-1]
     err = check_against_f64("ldlt_inverse", ldlt.ldlt_inverse,
                             ldlt.ldlt_inverse_plain, (Kf,), ())
+    qd = (quasi_definite(n, dtr.kz, dtr.ml, rng, dev),)
     rel = check_tight("ldlt_inverse", ldlt.ldlt_inverse,
-                      ldlt.ldlt_inverse_plain,
-                      (quasi_definite(n, dtr.kz, dtr.ml, rng, dev),), (),
-                      LDLT_RTOL)
+                      ldlt.ldlt_inverse_plain, qd, (), LDLT_RTOL)
+    relm = check_tight("ldlt_inverse (mirror)", ldlt.ldlt_inverse,
+                       ldlt.sweep_inverse_mirror, qd, (), MIRROR_RTOL)
     say("parity", f"ldlt_inverse random quasi-definite B={n} K={k}: rel "
-                  f"{rel:.2e} (tol {LDLT_RTOL})")
-    if _build.library().pt_ldlt_inverse_smem_bytes(k) != \
-            ldlt.inverse_smem_bytes(k):
+                  f"{rel:.2e} (tol {LDLT_RTOL}); against its mirror "
+                  f"{relm:.2e} (tol {MIRROR_RTOL})")
+    lib = _build.library()
+    if lib.pt_ldlt_inverse_smem_bytes(k) != ldlt.inverse_smem_bytes(k):
         raise RuntimeError("ldlt_inverse: the wrapper's fit rule and the "
                            "kernel's shared memory disagree")
+    rules = [(f"bbt at {t} threads", kmax,
+              lambda kk, t=t: lib.pt_bbt_tile_fits(kk, 0, t))
+             for t, kmax in _build.SWEEP_MAX_K.items()]
+    rules.append(("ldlt_inverse", _build.SWEEP_MAX_K[ldlt._THREADS],
+                  lib.pt_ldlt_inverse_fits))
+    for what, kmax, fits in rules:
+        for kk in (kmax, kmax + 1):
+            if bool(fits(kk)) != (kk <= kmax):
+                raise RuntimeError(f"the sweep's fit rule ({what}) and the "
+                                   f"kernels' tiles disagree at k={kk}")
     results["ldlt_inverse"] = {
         **err, **timing(lambda: ldlt.ldlt_inverse(Kf),
                         lambda: ldlt.ldlt_inverse_plain(Kf),
@@ -807,6 +873,7 @@ def phase_parity_dist(drec, dev, results):
                                    lambda: torch.linalg.inv(Kf)),
                         bound_inverse(n, k)),
         "shape": f"B*S={n} K={k}", "random_rel_vs_plain": rel,
+        "random_rel_vs_mirror": relm,
         "smem_bytes": ldlt.inverse_smem_bytes(k)}
     say("parity", f"ldlt_inverse at the dist batch's first-epoch KKTs: "
                   f"{results['ldlt_inverse']}")

@@ -4,25 +4,38 @@
 // Replaces the JAX package's Pallas TPU kernels
 //   polympc_tpu/ops/bbt_kernel.py : bbt_admm_epoch_batched (_epoch_body)
 //   polympc_tpu/ops/bbt_kernel.py : bbt_solve_batched      (_solve_only_body)
-// and computes what they compute: the block LDL^T factor of the
-// segment-permuted KKT (Schur-updated diagonal blocks, thin coupling solves
-// W_s = T~_s^-1 E, border Schur complement inverted by unpivoted
-// Gauss-Jordan), then either `iters` over-relaxed ADMM iterations on
-// permutation-unified vectors gated by the primal mask, or one solve.
+// and computes what they compute: the block elimination of the
+// segment-permuted KKT (Schur-updated diagonal blocks T~_s, thin couplings
+// W_s = T~_s^-1 E, the border Schur complement inverted), then either
+// `iters` over-relaxed ADMM iterations on permutation-unified vectors gated
+// by the primal mask, or one solve.
 //
-// What bounds it on an H100: not bytes.  Per epoch an instance reads its
-// gathered blocks once (~60 KB at the kite shape) and its vectors, and
-// writes three vectors back.  The time goes to latency: every ADMM
-// iteration is two triangular sweeps per block, i.e. ~2*S*k dependent
-// pivot steps each ending in a barrier, and nothing in one instance can
-// overlap them.
+// Design: explicit block inverses.  The factor inverts each T~_s in place
+// by an unpivoted Gauss-Jordan sweep (ptk::sweep_inverse: k barrier steps,
+// its pivots the unpivoted LDL^T's d); W_s is read in place as columns
+// bx_s..bx_s+nx of that inverse, V_s = T~_s^-1 C~_s is one product, and
+// the border's Schur complement is swept by the same primitive.  Each ADMM
+// iteration then applies the inverses: a (k x k) mat-vec per block
+// (ptk::block_matvec), the thin coupling and border products, the
+// elementwise update; about 5S + 3 barriers, where substituting through
+// LDL^T factors took 2k per block.  The plain PyTorch version substitutes;
+// bbt_epoch_mirror (ops/bbt_kernel.py) is this algorithm in PyTorch.
 //
-// What the design does about it: one thread block per instance holds the
-// instance's whole working set in dynamic shared memory for the epoch (the
-// factor never leaves the SM, and nothing factor-sized is written back), so
-// each pivot step costs a shared-memory axpy and one barrier, and several
-// instances share an SM (about four at the kite shape) to hide each
-// other's barrier latency.  wgmma, TMA and register blocking are later work.
+// What bounds it on an H100: not bytes, and not the card's FLOPs.  Per
+// epoch an instance reads its gathered blocks once (~74 KB at the race
+// car's k = 96) and its vectors, and writes three vectors back.  One
+// thread block per instance keeps the working set in dynamic shared memory
+// for the whole epoch (the inverses never leave the SM), so the time goes
+// to latency within the SM: the sweeps' k steps each (a barrier, the pivot
+// vectors' loads, RA*CB multiply-adds per thread on the block held in
+// registers) and, per iteration, about 5S + 3 barrier-separated phases, of
+// which the mat-vecs read each inverse from shared memory.  On the card
+// the two halves weigh about the same (chip_smoke.py, PERF.md).  Two
+// instances share an SM at k = 96 (shared memory) and three at k = 72
+// with 128 threads (registers): ops/bbt_kernel.py:epoch_threads picks the
+// block size that holds more.  Tensor cores do not apply: every product
+// of an iteration is a matrix-vector product per instance, and TF32 would
+// break the fp32 precision contract.
 //
 // Layouts (batch-major, contiguous, T = float):
 //   Td   (B, S, k, k)   diagonal blocks (padding rows/cols identity)
@@ -43,53 +56,59 @@ struct Shape {
   int S, k, nx, a, L, ldk;
 };
 
+// F: the S diagonal blocks, then their inverses, row stride ldk = k + 1;
+// z: one block's mat-vec result; piv: the sweep's pivot vectors.
 template <typename T>
 struct Work {
-  T *F, *d, *Oh, *W, *OG, *Ct, *V, *Sp, *tb;
+  T *F, *Oh, *OG, *Ct, *V, *Sp, *tb, *z, *piv;
 };
+
+__host__ __device__ int imax(int x, int y) { return x > y ? x : y; }
+
+// rows of the sweep's register tile, 32 * ceil(max(k, a) / 32)
+__host__ __device__ int piv_rows(const Shape& sh) {
+  return (imax(sh.k, sh.a) + 31) / 32 * 32;
+}
 
 __host__ __device__ size_t work_elems(const Shape& sh) {
   const size_t Sk = size_t(sh.S) * sh.k;
-  const int tbn = sh.a > sh.nx ? sh.a : sh.nx;
-  return Sk * sh.ldk + Sk + 2 * Sk * sh.nx + size_t(sh.k) * sh.nx +
-         2 * Sk * sh.a + size_t(sh.a) * sh.a + tbn;
+  return Sk * sh.ldk + Sk * sh.nx + size_t(sh.k) * sh.nx + 2 * Sk * sh.a +
+         size_t(sh.a) * sh.a + imax(sh.a, sh.nx) + sh.k +
+         4 + 4 * piv_rows(sh);
 }
 
 template <typename T>
 __device__ Work<T> carve(T* p, const Shape& sh) {
+  T* const base = p;
   const int Sk = sh.S * sh.k;
   Work<T> w;
   w.F = p;   p += size_t(Sk) * sh.ldk;
-  w.d = p;   p += Sk;
   w.Oh = p;  p += Sk * sh.nx;
-  w.W = p;   p += Sk * sh.nx;
   w.OG = p;  p += sh.k * sh.nx;
   w.Ct = p;  p += Sk * sh.a;
   w.V = p;   p += Sk * sh.a;
   w.Sp = p;  p += sh.a * sh.a;
-  w.tb = p;
+  w.tb = p;  p += imax(sh.a, sh.nx);
+  w.z = p;   p += sh.k;
+  w.piv = base + (p - base + 3) / 4 * 4;  // 16-byte aligned
   return w;
 }
 
 template <typename T>
 __device__ void load_blocks(const Work<T>& w, const Shape& sh, const T* Td,
                             const T* Oh, const T* Ct, const T* Dp) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int k = sh.k, kk = k * k, Sk = sh.S * k;
-  for (int idx = tid; idx < sh.S * kk; idx += nthr) {
-    const int s = idx / kk, r = (idx / k) % k, c = idx % k;
-    w.F[(s * k + r) * sh.ldk + c] = Td[idx];
-  }
-  for (int idx = tid; idx < Sk * sh.nx; idx += nthr) w.Oh[idx] = Oh[idx];
-  for (int idx = tid; idx < Sk * sh.a; idx += nthr) w.Ct[idx] = Ct[idx];
-  for (int idx = tid; idx < sh.a * sh.a; idx += nthr) w.Sp[idx] = Dp[idx];
+  const int Sk = sh.S * sh.k;
+  ptk::load_rows(w.F, sh.ldk, Td, Sk, sh.k);
+  ptk::load_rows(w.Oh, sh.nx, Oh, Sk, sh.nx);
+  ptk::load_rows(w.Ct, sh.k, Ct, sh.S * sh.a, sh.k);
+  ptk::load_rows(w.Sp, sh.a, Dp, sh.a, sh.a);
 }
 
-// Block factor of the BBT system, in place.  After it: F/d hold the packed
-// factors of the Schur-updated diagonal blocks, W_s = T~_s^-1 E (rows e),
-// V_s = T~_s^-1 C~_s (rows c), Ct the updated border columns C~_s, and Sp
-// the INVERSE of the border Schur complement.
-template <typename T>
+// Block elimination of the BBT system, in place.  After it: F holds the
+// inverses T~_s^-1 of the Schur-updated diagonal blocks, V_s = T~_s^-1 C~_s
+// (rows c), Ct the updated border columns C~_s, and Sp the INVERSE of the
+// border Schur complement.
+template <int RA, int NW, typename T>
 __device__ void bbt_factor(const Work<T>& w, const Shape& sh, const int* bx) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int k = sh.k, nx = sh.nx, a = sh.a, ldk = sh.ldk;
@@ -98,12 +117,13 @@ __device__ void bbt_factor(const Work<T>& w, const Shape& sh, const int* bx) {
     const T* Os = w.Oh + s * k * nx;
     if (s > 0) {
       const int bxp = bx[s - 1];
-      const T* Wp = w.W + (s - 1) * nx * k;
-      // OG = O_s G, G[e][f] = (T~_{s-1}^-1 E)[bxp + e][f]
+      // G = (T~_{s-1}^-1 E)[bxp + e][f], in place in the previous inverse
+      const T* G = w.F + size_t(s - 1) * k * ldk + bxp * ldk + bxp;
+      // OG = O_s G
       for (int idx = tid; idx < k * nx; idx += nthr) {
         const int r = idx / nx, f = idx % nx;
         T acc = T(0);
-        for (int e = 0; e < nx; ++e) acc += Os[r * nx + e] * Wp[f * k + bxp + e];
+        for (int e = 0; e < nx; ++e) acc += Os[r * nx + e] * G[e * ldk + f];
         w.OG[idx] = acc;
       }
       // C~_s -= O_s (E' T~_{s-1}^-1 C~_{s-1})
@@ -123,17 +143,12 @@ __device__ void bbt_factor(const Work<T>& w, const Shape& sh, const int* bx) {
         Fs[r * ldk + c] -= acc;
       }
     }
-    ptk::factor_block(Fs, w.d + s * k, k, ldk);
-    T* Ws = w.W + s * nx * k;
-    T* Vs = w.V + s * a * k;
-    for (int idx = tid; idx < nx * k; idx += nthr) {
-      const int e = idx / k, r = idx % k;
-      Ws[idx] = (r == bx[s] + e) ? T(1) : T(0);
-    }
-    for (int idx = tid; idx < a * k; idx += nthr) Vs[idx] = w.Ct[s * a * k + idx];
-    ptk::solve_block(Fs, w.d + s * k, k, ldk, Ws, k, nx);
+    ptk::sweep_inverse<RA, NW>(Fs, k, ldk, w.piv);
     if (a > 0) {
-      ptk::solve_block(Fs, w.d + s * k, k, ldk, Vs, k, a);
+      T* Vs = w.V + s * a * k;
+      for (int c = 0; c < a; ++c)
+        ptk::block_matvec(Fs, k, ldk, w.Ct + (s * a + c) * k, Vs + c * k);
+      __syncthreads();
       // Sp -= C~_s' V_s
       for (int idx = tid; idx < a * a; idx += nthr) {
         const int c = idx / a, dd = idx % a;
@@ -142,60 +157,45 @@ __device__ void bbt_factor(const Work<T>& w, const Shape& sh, const int* bx) {
           acc += w.Ct[(s * a + c) * k + r] * Vs[dd * k + r];
         w.Sp[idx] -= acc;
       }
-      __syncthreads();
     }
   }
-  if (a > 0) {
-    // unpivoted Gauss-Jordan inverse of the a x a border Schur complement,
-    // in place (strongly factorisable for a quasi-definite KKT); a is
-    // small, so one thread does it
-    if (tid == 0) {
-      T* A = w.Sp;
-      for (int i = 0; i < a; ++i) {
-        const T dinv = T(1) / A[i * a + i];
-        A[i * a + i] = T(1);
-        for (int c = 0; c < a; ++c) A[i * a + c] *= dinv;
-        for (int r = 0; r < a; ++r) {
-          if (r == i) continue;
-          const T f = A[r * a + i];
-          A[r * a + i] = T(0);
-          for (int c = 0; c < a; ++c) A[r * a + c] -= f * A[i * a + c];
-        }
-      }
-    }
-    __syncthreads();
-  }
+  if (a > 0) ptk::sweep_inverse<RA, NW>(w.Sp, a, a, w.piv);
+  __syncthreads();
 }
 
-// Solve the factored BBT system in place: u (L,) holds the permuted RHS on
-// entry and the permuted solution on exit.
+// Solve the eliminated BBT system in place: u (L,) holds the permuted RHS
+// on entry and the permuted solution on exit.
 template <typename T>
 __device__ void bbt_solve(const Work<T>& w, const Shape& sh, const int* bx,
                           T* u) {
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int k = sh.k, nx = sh.nx, a = sh.a, ldk = sh.ldk, S = sh.S;
   T* ub = u + S * k;
+  __syncthreads();
+  // forward: u_s <- T~_s^-1 u_s; then u_{s+1} -= O_{s+1} u_s[bx_s + e] and
+  // the border u_b -= C~_s' u_s, all from the mat-vec's result z
   for (int s = 0; s < S; ++s) {
     T* us = u + s * k;
-    if (s > 0) {
-      const int bxp = bx[s - 1];
-      const T* prev = u + (s - 1) * k;
-      const T* Os = w.Oh + s * k * nx;
+    ptk::block_matvec(w.F + size_t(s) * k * ldk, k, ldk, us, w.z);
+    __syncthreads();
+    for (int r = tid; r < k; r += nthr) us[r] = w.z[r];
+    if (s + 1 < S) {
+      const T* On = w.Oh + (s + 1) * k * nx;
+      const T* zb = w.z + bx[s];
+      T* un = us + k;
       for (int r = tid; r < k; r += nthr) {
         T acc = T(0);
-        for (int e = 0; e < nx; ++e) acc += Os[r * nx + e] * prev[bxp + e];
-        us[r] -= acc;
+        for (int e = 0; e < nx; ++e) acc += On[r * nx + e] * zb[e];
+        un[r] -= acc;
       }
     }
-    ptk::solve_block(w.F + size_t(s) * k * ldk, w.d + s * k, k, ldk, us, k, 1);
     if (a > 0) {
-      for (int c = tid; c < a; c += nthr) {
-        T acc = T(0);
-        for (int r = 0; r < k; ++r) acc += w.Ct[(s * a + c) * k + r] * us[r];
-        ub[c] -= acc;
-      }
-      __syncthreads();
+      const T* Cs = w.Ct + s * a * k;
+      const T* z = w.z;
+      ptk::warp_sums<T>(a, k, [=](int c, int r) { return Cs[c * k + r] * z[r]; },
+                        [=](int c, T acc) { ub[c] -= acc; });
     }
+    __syncthreads();
   }
   if (a > 0) {
     for (int c = tid; c < a; c += nthr) {
@@ -207,32 +207,33 @@ __device__ void bbt_solve(const Work<T>& w, const Shape& sh, const int* bx,
     for (int c = tid; c < a; c += nthr) ub[c] = w.tb[c];
     __syncthreads();
   }
+  // backward: u_s -= V_s u_b + W_s (O_{s+1}' u_{s+1}), W_s read in place
   for (int s = S - 1; s >= 0; --s) {
     T* us = u + s * k;
     const bool coupled = s < S - 1;
+    if (!coupled && a == 0) continue;
+    const T* Ws = w.F + size_t(s) * k * ldk + bx[s];
     if (coupled) {
       const T* On = w.Oh + (s + 1) * k * nx;
-      const T* xn = u + (s + 1) * k;
-      for (int e = tid; e < nx; e += nthr) {
-        T acc = T(0);
-        for (int r = 0; r < k; ++r) acc += On[r * nx + e] * xn[r];
-        w.tb[e] = acc;
-      }
+      const T* xn = us + k;
+      T* tb = w.tb;
+      ptk::warp_sums<T>(nx, k, [=](int e, int r) { return On[r * nx + e] * xn[r]; },
+                        [=](int e, T acc) { tb[e] = acc; });
       __syncthreads();
     }
     for (int r = tid; r < k; r += nthr) {
       T acc = T(0);
       for (int c = 0; c < a; ++c) acc += w.V[(s * a + c) * k + r] * ub[c];
       if (coupled)
-        for (int e = 0; e < nx; ++e) acc += w.W[(s * nx + e) * k + r] * w.tb[e];
+        for (int e = 0; e < nx; ++e) acc += Ws[r * ldk + e] * w.tb[e];
       us[r] -= acc;
     }
     __syncthreads();
   }
 }
 
-template <typename T>
-__global__ void bbt_epoch_kernel(const T* __restrict__ Td,
+template <typename T, int RA, int NW>
+__global__ void __launch_bounds__(NW * 32) bbt_epoch_kernel(const T* __restrict__ Td,
                                  const T* __restrict__ Oh,
                                  const T* __restrict__ Ct,
                                  const T* __restrict__ Dp,
@@ -271,7 +272,8 @@ __global__ void bbt_epoch_kernel(const T* __restrict__ Td,
     v[r] = vb[6 * L + r];
     yv[r] = vb[7 * L + r];
   }
-  bbt_factor(w, sh, bx);
+  __syncthreads();
+  bbt_factor<RA, NW>(w, sh, bx);
 
   for (int it = 0; it < iters; ++it) {
     for (int r = threadIdx.x; r < L; r += blockDim.x) {
@@ -302,8 +304,8 @@ __global__ void bbt_epoch_kernel(const T* __restrict__ Td,
   }
 }
 
-template <typename T>
-__global__ void bbt_solve_kernel(const T* __restrict__ Td,
+template <typename T, int RA, int NW>
+__global__ void __launch_bounds__(NW * 32) bbt_solve_kernel(const T* __restrict__ Td,
                                  const T* __restrict__ Oh,
                                  const T* __restrict__ Ct,
                                  const T* __restrict__ Dp,
@@ -318,13 +320,23 @@ __global__ void bbt_solve_kernel(const T* __restrict__ Td,
   load_blocks(w, sh, Td + b * Sk * k, Oh + b * Sk * sh.nx,
               Ct + b * Sk * sh.a, Dp + b * sh.a * sh.a);
   for (int r = threadIdx.x; r < L; r += blockDim.x) u[r] = rhs[b * L + r];
-  bbt_factor(w, sh, bx);
+  __syncthreads();
+  bbt_factor<RA, NW>(w, sh, bx);
   bbt_solve(w, sh, bx, u);
   for (int r = threadIdx.x; r < L; r += blockDim.x) out[b * L + r] = u[r];
 }
 
 Shape make_shape(int S, int k, int nx, int a) {
   return Shape{S, k, nx, a, S * k + a, k + 1};
+}
+
+// f(RA, NW) at the epoch's block size, 256 threads (NW = 8) or 128
+// (NW = 4); the single solve is built at 256 only.
+template <typename F>
+int with_epoch_tile(int k, int threads, F&& f) {
+  if (threads == 256) return ptk::with_tile<8>(k, f);
+  if (threads == 128) return ptk::with_tile<4>(k, f);
+  return int(cudaErrorInvalidValue);
 }
 
 template <typename K>
@@ -348,6 +360,29 @@ size_t pt_bbt_solve_smem_bytes(int S, int k, int nx, int a) {
   return (work_elems(sh) + size_t(sh.L)) * sizeof(float);
 }
 
+// 1 if the kernels are built for blocks of max(k, a) rows at this many
+// threads per block (the register tile of the sweep; ldlt_device.cuh).
+int pt_bbt_tile_fits(int k, int a, int threads) {
+  return with_epoch_tile(imax(k, a), threads,
+                         [](auto, auto) { return 0; }) == 0;
+}
+
+// Thread blocks of the epoch kernel that one SM holds at once at this many
+// threads per block (0 where the kernel is not built for the shape).
+int pt_bbt_epoch_blocks_per_sm(int S, int k, int nx, int a, int threads) {
+  if (!pt_bbt_tile_fits(k, a, threads)) return 0;
+  const size_t smem = pt_bbt_epoch_smem_bytes(S, k, nx, a);
+  int blocks = 0;
+  const int rc = with_epoch_tile(imax(k, a), threads, [&](auto ra, auto nw) {
+    auto kernel = bbt_epoch_kernel<float, decltype(ra)::value,
+                                   decltype(nw)::value>;
+    if (int rc = allow_smem(kernel, smem)) return rc;
+    return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, threads, smem));
+  });
+  return rc == 0 ? blocks : 0;
+}
+
 int pt_bbt_epoch_f32(const float* Td, const float* Oh, const float* Ct,
                      const float* Dp, const float* vin, float* vout,
                      const int* bx, int B, int S, int k, int nx, int a,
@@ -355,10 +390,14 @@ int pt_bbt_epoch_f32(const float* Td, const float* Oh, const float* Ct,
                      void* stream) {
   const Shape sh = make_shape(S, k, nx, a);
   const size_t smem = pt_bbt_epoch_smem_bytes(S, k, nx, a);
-  if (int rc = allow_smem(bbt_epoch_kernel<float>, smem)) return rc;
-  bbt_epoch_kernel<float><<<B, threads, smem, (cudaStream_t)stream>>>(
-      Td, Oh, Ct, Dp, vin, vout, bx, sh, sigma, alpha, iters);
-  return int(cudaGetLastError());
+  return with_epoch_tile(imax(k, a), threads, [&](auto ra, auto nw) {
+    constexpr int RA = decltype(ra)::value, NW = decltype(nw)::value;
+    auto kernel = bbt_epoch_kernel<float, RA, NW>;
+    if (int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<B, NW * 32, smem, (cudaStream_t)stream>>>(
+        Td, Oh, Ct, Dp, vin, vout, bx, sh, sigma, alpha, iters);
+    return int(cudaGetLastError());
+  });
 }
 
 int pt_bbt_solve_f32(const float* Td, const float* Oh, const float* Ct,
@@ -367,10 +406,15 @@ int pt_bbt_solve_f32(const float* Td, const float* Oh, const float* Ct,
                      int threads, void* stream) {
   const Shape sh = make_shape(S, k, nx, a);
   const size_t smem = pt_bbt_solve_smem_bytes(S, k, nx, a);
-  if (int rc = allow_smem(bbt_solve_kernel<float>, smem)) return rc;
-  bbt_solve_kernel<float><<<B, threads, smem, (cudaStream_t)stream>>>(
-      Td, Oh, Ct, Dp, rhs, out, bx, sh);
-  return int(cudaGetLastError());
+  if (threads != 256) return int(cudaErrorInvalidValue);
+  return ptk::with_tile<8>(imax(k, a), [&](auto ra, auto nw) {
+    constexpr int RA = decltype(ra)::value, NW = decltype(nw)::value;
+    auto kernel = bbt_solve_kernel<float, RA, NW>;
+    if (int rc = allow_smem(kernel, smem)) return rc;
+    kernel<<<B, NW * 32, smem, (cudaStream_t)stream>>>(
+        Td, Oh, Ct, Dp, rhs, out, bx, sh);
+    return int(cudaGetLastError());
+  });
 }
 
 const char* pt_error_string(int code) {

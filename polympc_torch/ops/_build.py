@@ -20,10 +20,15 @@ import time
 from pathlib import Path
 
 __all__ = ["library", "build", "check", "LAUNCHES", "reset_launches",
-           "SMEM_LIMIT_BYTES"]
+           "SMEM_LIMIT_BYTES", "SWEEP_MAX_K", "check_sweep"]
 
 # dynamic shared memory one block may opt into on sm_90 (232,448 bytes)
 SMEM_LIMIT_BYTES = 227 * 1024
+
+# Threads per block -> the largest block the Gauss-Jordan sweep's register
+# tile holds (csrc/ldlt_device.cuh, with_tile: ceil(k / 32) rows per lane,
+# up to 6 at 8 warps and 4 at 4).
+SWEEP_MAX_K = {128: 128, 256: 192}
 
 # Launch count of each kernel: its wrapper adds one where it launches the
 # kernel on the card and nowhere else (the plain versions do not count).
@@ -50,6 +55,8 @@ _SIGNATURES = {
     "pt_bbt_solve_f32": (_I, [_P] * 7 + [_I] * 5 + [_I, _P]),
     "pt_bbt_epoch_smem_bytes": (_Z, [_I] * 4),
     "pt_bbt_solve_smem_bytes": (_Z, [_I] * 4),
+    "pt_bbt_tile_fits": (_I, [_I] * 3),
+    "pt_bbt_epoch_blocks_per_sm": (_I, [_I] * 5),
     "pt_admm_epoch_f32": (_I, [_P] * 18 + [_I, _I, _I, _F, _F, _I, _I, _P]),
     "pt_admm_epoch_smem_bytes": (_Z, [_I, _I]),
     "pt_ldlt_factor_f32": (_I, [_P] * 3 + [_I, _I, _I, _P]),
@@ -58,6 +65,7 @@ _SIGNATURES = {
     "pt_ldlt_smem_bytes": (_Z, [_I]),
     "pt_ldlt_inverse_f32": (_I, [_P] * 2 + [_I, _I, _I, _P]),
     "pt_ldlt_inverse_smem_bytes": (_Z, [_I]),
+    "pt_ldlt_inverse_fits": (_I, [_I]),
     "pt_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -148,6 +156,18 @@ def check_smem(smem: int, what: str):
         raise ValueError(f"{what} needs {smem} bytes of shared memory per "
                          f"block, more than the {SMEM_LIMIT_BYTES} a Hopper "
                          "block can use")
+
+
+def check_sweep(k: int, threads: int, what: str):
+    """Raise, naming the shape, if the kernels are not built for blocks of
+    k rows at this many threads per block (:data:`SWEEP_MAX_K`)."""
+    if threads not in SWEEP_MAX_K:
+        raise ValueError(f"{what}: {threads} threads per block; the kernels "
+                         f"are built for {sorted(SWEEP_MAX_K)}")
+    if k > SWEEP_MAX_K[threads]:
+        raise ValueError(f"{what}: blocks of {k} rows; at {threads} threads "
+                         "per block the sweep's register tile holds up to "
+                         f"{SWEEP_MAX_K[threads]}")
 
 
 def stream_of(t):

@@ -9,7 +9,12 @@ of each Schur-updated diagonal block, thin coupling solves W_s = T~_s^-1 E,
 the border Schur complement inverted by unpivoted Gauss-Jordan — and runs
 ``iters`` over-relaxed ADMM iterations on permutation-unified vectors
 (primal and dual rows interleaved by block, one elementwise update gated by
-a per-row primal mask).
+a per-row primal mask).  The CUDA kernel eliminates the same blocks but
+inverts each Schur-updated diagonal block explicitly (an in-place
+Gauss-Jordan sweep) and applies the inverses in every iteration, where the
+plain version substitutes through LDL^T factors: :func:`bbt_epoch_mirror`
+and :func:`bbt_solve_mirror` are the kernel's algorithm in PyTorch, for the
+tests and ``chip_smoke.py``.
 
 Host prep is torch indexing on the tensors' device: the block gathers
 (``structure.gather_blocks``) and the permutation of the eight state
@@ -24,15 +29,44 @@ from __future__ import annotations
 import torch
 
 from polympc_torch.ops import _build
-from polympc_torch.ops.ldlt import ldlt_factor_plain, ldlt_solve_plain
+from polympc_torch.ops.ldlt import (
+    ldlt_factor_plain, ldlt_solve_plain, sweep_inverse_mirror,
+)
 from polympc_torch.ops.structure import (
     CollocStructure, _indices, gather_blocks, permute_vec, unpermute_vec,
 )
 
 __all__ = ["bbt_admm_epoch_batched", "bbt_solve_batched", "prepare_epoch",
-           "bbt_epoch", "bbt_epoch_plain", "bbt_solve", "bbt_solve_plain"]
+           "epoch_threads",
+           "bbt_epoch", "bbt_epoch_plain", "bbt_epoch_mirror", "bbt_solve",
+           "bbt_solve_plain", "bbt_solve_mirror"]
 
-_THREADS = 128
+# the thread counts per block the epoch kernel is built for (see
+# epoch_threads); the single solve, which only the parity harness runs, is
+# built at 256
+_THREADS = (128, 256)
+_SOLVE_THREADS = 256
+_CHOSEN = {}
+
+
+def epoch_threads(st: CollocStructure) -> int:
+    """Threads per block of the epoch kernel for a structure: of 128 and
+    256, the one with which an SM holds more instances at once, 256 on a
+    tie.  Each instance is bound by its own chain of barriers, and
+    independent instances on one SM hide each other's; on the card the
+    kite's shape (k=72: three instances per SM at 128 threads, two at 256,
+    by registers) ran faster at 128 and the race car's (k=96: two at
+    either, by shared memory) at 256 (``chip_smoke.py`` prints both)."""
+    key = (st.S, st.k, st.nx, st.a)
+    if key not in _CHOSEN:
+        lib = _build.library()
+        fit = [(lib.pt_bbt_epoch_blocks_per_sm(*key, t), t) for t in _THREADS]
+        blocks, threads = max(fit)
+        if blocks == 0:
+            raise ValueError(f"bbt_epoch: no block of {_THREADS} threads "
+                             f"fits {_shape_str(st)}")
+        _CHOSEN[key] = threads
+    return _CHOSEN[key]
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +134,13 @@ def _solve_multi(F, d, Y):
 def _bbt_solve_plain(fac, Oh, u, st: CollocStructure):
     """Solve the factored BBT system for u (B, S*k + a) permuted."""
     F, d, W, Cs, V, Gp = fac
+    return _bbt_substitute(lambda s, y: ldlt_solve_plain(F[s], d[s], y),
+                           W, Cs, V, Gp, Oh, u, st)
+
+
+def _bbt_substitute(block_solve, W, Cs, V, Gp, Oh, u, st: CollocStructure):
+    """Forward and backward block substitution of the factored BBT system,
+    with ``block_solve(s, y)`` applying T~_s^-1 to y (B, k)."""
     S, k, nx, a = st.S, st.k, st.nx, st.a
     us = []
     bph = u[:, S * k:]
@@ -108,7 +149,7 @@ def _bbt_solve_plain(fac, Oh, u, st: CollocStructure):
         if s > 0:
             bxp = st.bx[s - 1]
             y = y - (Oh[:, s] @ us[s - 1][:, bxp:bxp + nx, None])[..., 0]
-        us.append(ldlt_solve_plain(F[s], d[s], y))
+        us.append(block_solve(s, y))
         if a:
             bph = bph - (Cs[s].transpose(1, 2) @ us[s][..., None])[..., 0]
     xp = (Gp @ bph[..., None])[..., 0] if a else bph
@@ -138,11 +179,18 @@ def bbt_epoch_plain(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
     over-relaxed iterations.  vin (B, 8, L) holds h, lo, hi, rv, pm, x, v,
     yv in the permuted order; returns vout (B, 3, L) = x, v, yv."""
     fac = _bbt_factor_plain(Td, Oh, Ct, Dp, st)
+    return _admm_iterations(lambda rhs: _bbt_solve_plain(fac, Oh, rhs, st),
+                            vin, sigma, alpha, iters)
+
+
+def _admm_iterations(solve, vin, sigma, alpha, iters):
+    """``iters`` over-relaxed boxADMM iterations on the unified permuted
+    vectors, each solving the factored KKT once with ``solve(rhs)``."""
     h, lo, hi, rv, pm, x, v, yv = vin.unbind(1)
     ri = 1.0 / rv
     for _ in range(iters):
         rhs = pm * (sigma * x + rv * v - yv - h) + (1.0 - pm) * (v - yv * ri)
-        sol = _bbt_solve_plain(fac, Oh, rhs, st)
+        sol = solve(rhs)
         t = pm * sol + (1.0 - pm) * (v + (sol - yv) * ri)
         x = pm * (alpha * sol + (1.0 - alpha) * x) + (1.0 - pm) * x
         vu = alpha * t + (1.0 - alpha) * v
@@ -150,6 +198,63 @@ def bbt_epoch_plain(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
         yv = yv + rv * (vu - vn)
         v = vn
     return torch.stack([x, v, yv], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# mirrors of the CUDA kernels' algorithm (explicit block inverses)
+# ---------------------------------------------------------------------------
+
+def _bbt_factor_mirror(Td, Oh, Ct, Dp, st: CollocStructure):
+    """The block factor as ``csrc/bbt_epoch.cu`` computes it: each
+    Schur-updated diagonal block inverted in place by the Gauss-Jordan sweep
+    (:func:`~polympc_torch.ops.ldlt.sweep_inverse_mirror`), W_s = T~_s^-1 E
+    read as columns bx_s..bx_s+nx of that inverse, V_s = T~_s^-1 C~_s one
+    product, the border Schur complement swept by the same primitive.
+    Returns (T~_s^-1 list, W, C~, V, border inverse)."""
+    S, nx = st.S, st.nx
+    C = Ct.transpose(2, 3)
+    Ti, W, Cs, V = [], [], [], []
+    Sp = Dp
+    for s in range(S):
+        T, Cc = Td[:, s], C[:, s]
+        if s > 0:
+            bxp = st.bx[s - 1]
+            O = Oh[:, s]
+            G = Ti[s - 1][:, bxp:bxp + nx, bxp:bxp + nx]
+            T = T - O @ G @ O.transpose(1, 2)
+            Cc = Cc - O @ V[s - 1][:, bxp:bxp + nx, :]
+        Ti.append(sweep_inverse_mirror(T))
+        W.append(Ti[s][:, :, st.bx[s]:st.bx[s] + nx])
+        Cs.append(Cc)
+        V.append(Ti[s] @ Cc)
+        Sp = Sp - Cc.transpose(1, 2) @ V[s]
+    Gp = sweep_inverse_mirror(Sp) if st.a else Sp
+    return Ti, W, Cs, V, Gp
+
+
+def _bbt_solve_mirror(fac, Oh, u, st: CollocStructure):
+    Ti, W, Cs, V, Gp = fac
+    return _bbt_substitute(lambda s, y: (Ti[s] @ y[..., None])[..., 0],
+                           W, Cs, V, Gp, Oh, u, st)
+
+
+def bbt_solve_mirror(Td, Oh, Ct, Dp, rhs, st: CollocStructure):
+    """:func:`bbt_solve_plain` by the CUDA kernel's algorithm (explicit
+    block inverses; see :func:`_bbt_factor_mirror`), for the tests and
+    ``chip_smoke.py``; nothing on the main path calls it."""
+    fac = _bbt_factor_mirror(Td, Oh, Ct, Dp, st)
+    return _bbt_solve_mirror(fac, Oh, rhs, st)
+
+
+def bbt_epoch_mirror(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
+                     alpha: float, iters: int):
+    """:func:`bbt_epoch_plain` by the CUDA kernel's algorithm: each
+    iteration applies the explicit block inverses where the plain version
+    substitutes through LDL^T factors.  For the tests and
+    ``chip_smoke.py``; nothing on the main path calls it."""
+    fac = _bbt_factor_mirror(Td, Oh, Ct, Dp, st)
+    return _admm_iterations(lambda rhs: _bbt_solve_mirror(fac, Oh, rhs, st),
+                            vin, sigma, alpha, iters)
 
 
 # ---------------------------------------------------------------------------
@@ -182,8 +287,9 @@ def bbt_epoch(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
               alpha: float, iters: int):
     """:func:`bbt_epoch_plain` on the device of its inputs: CUDA float32
     launches the ``csrc/bbt_epoch.cu`` kernel (one thread block per
-    instance, its factor in shared memory for the whole epoch); CPU takes
-    the plain version."""
+    instance, of :func:`epoch_threads`, its explicit block inverses in
+    shared memory for the whole epoch: :func:`bbt_epoch_mirror` is its
+    algorithm); CPU takes the plain version."""
     if Td.device.type == "cpu":
         return bbt_epoch_plain(Td, Oh, Ct, Dp, vin, st, sigma, alpha, iters)
     if Td.device.type != "cuda":
@@ -193,19 +299,32 @@ def bbt_epoch(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
     if tuple(vin.shape) != (B, 8, L):
         raise ValueError(f"bbt_epoch: vin of shape {tuple(vin.shape)}, "
                          f"expected {(B, 8, L)}")
-    lib = _build.library()
-    _build.check_smem(lib.pt_bbt_epoch_smem_bytes(st.S, st.k, st.nx, st.a),
-                      f"bbt_epoch at {_shape_str(st)}")
+    _build.check_smem(
+        _build.library().pt_bbt_epoch_smem_bytes(st.S, st.k, st.nx, st.a),
+        f"bbt_epoch at {_shape_str(st)}")
+    threads = epoch_threads(st)
+    _build.check_sweep(max(st.k, st.a), threads,
+                       f"bbt_epoch at {_shape_str(st)}")
+    return _launch_epoch(Td, Oh, Ct, Dp, vin, st, sigma, alpha, iters,
+                         threads)
+
+
+def _launch_epoch(Td, Oh, Ct, Dp, vin, st, sigma, alpha, iters, threads):
+    """The epoch kernel's launch at ``threads`` per block (128 or 256) on
+    contiguous CUDA float32 inputs that :func:`bbt_epoch` has checked;
+    ``chip_smoke.py`` and the card tests also call it to time and hold
+    both block sizes."""
+    B, L = Td.shape[0], st.S * st.k + st.a
     vout = torch.empty((B, 3, L), dtype=vin.dtype, device=vin.device)
     if B == 0:
         return vout
     bx = _indices(st, Td.device)["bx"]
     with torch.cuda.device(Td.device):
-        rc = lib.pt_bbt_epoch_f32(
+        rc = _build.library().pt_bbt_epoch_f32(
             Td.data_ptr(), Oh.data_ptr(), Ct.data_ptr(), Dp.data_ptr(),
             vin.data_ptr(), vout.data_ptr(), bx.data_ptr(), B, st.S, st.k,
-            st.nx, st.a, float(sigma), float(alpha), int(iters), _THREADS,
-            _build.stream_of(Td))
+            st.nx, st.a, float(sigma), float(alpha), int(iters),
+            int(threads), _build.stream_of(Td))
     _build.check(rc, "bbt_epoch")
     _build.LAUNCHES["bbt_epoch"] += 1
     return vout
@@ -213,7 +332,8 @@ def bbt_epoch(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
 
 def bbt_solve(Td, Oh, Ct, Dp, rhs, st: CollocStructure):
     """:func:`bbt_solve_plain` on the device of its inputs (CUDA float32:
-    the ``csrc/bbt_epoch.cu`` factor + solve kernel)."""
+    the ``csrc/bbt_epoch.cu`` factor + solve kernel, whose algorithm is
+    :func:`bbt_solve_mirror`)."""
     if Td.device.type == "cpu":
         return bbt_solve_plain(Td, Oh, Ct, Dp, rhs, st)
     if Td.device.type != "cuda":
@@ -226,6 +346,8 @@ def bbt_solve(Td, Oh, Ct, Dp, rhs, st: CollocStructure):
     lib = _build.library()
     _build.check_smem(lib.pt_bbt_solve_smem_bytes(st.S, st.k, st.nx, st.a),
                       f"bbt_solve at {_shape_str(st)}")
+    _build.check_sweep(max(st.k, st.a), _SOLVE_THREADS,
+                       f"bbt_solve at {_shape_str(st)}")
     out = torch.empty_like(rhs)
     if B == 0:
         return out
@@ -234,7 +356,7 @@ def bbt_solve(Td, Oh, Ct, Dp, rhs, st: CollocStructure):
         rc = lib.pt_bbt_solve_f32(
             Td.data_ptr(), Oh.data_ptr(), Ct.data_ptr(), Dp.data_ptr(),
             rhs.data_ptr(), out.data_ptr(), bx.data_ptr(), B, st.S, st.k,
-            st.nx, st.a, _THREADS, _build.stream_of(Td))
+            st.nx, st.a, _SOLVE_THREADS, _build.stream_of(Td))
     _build.check(rc, "bbt_solve")
     _build.LAUNCHES["bbt_solve"] += 1
     return out

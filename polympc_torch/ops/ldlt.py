@@ -27,7 +27,7 @@ from polympc_torch.ops import _build
 
 __all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve", "ldlt_inverse",
            "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain",
-           "ldlt_inverse_plain", "inverse_smem_bytes"]
+           "ldlt_inverse_plain", "sweep_inverse_mirror", "inverse_smem_bytes"]
 
 _THREADS = 256
 
@@ -76,11 +76,38 @@ def ldlt_inverse_plain(M):
                                          unitriangular=True)
 
 
+def sweep_inverse_mirror(M):
+    """The CUDA kernels' explicit inverse, in plain PyTorch: an in-place
+    unpivoted Gauss-Jordan sweep of each symmetric (K, K) matrix (the
+    device primitive ``ptk::sweep_inverse`` of ``csrc/ldlt_device.cuh``,
+    operation for operation).  Pivot p reads only column p: after the
+    pivots before p, row p equals column p with the sign flipped at the
+    swept indices j < p.  Its pivots are the unpivoted LDL^T's d.  Used by
+    the tests and ``chip_smoke.py``, not on the main path.
+    (B, K, K) -> (B, K, K)."""
+    A = M.clone()
+    K = A.shape[-1]
+    sign = torch.ones(K, dtype=A.dtype, device=A.device)
+    for p in range(K):
+        v = A[:, :, p].clone()
+        dinv = 1.0 / v[:, p]
+        y = v * sign
+        y[:, p] = 1.0
+        yd = y * dinv[:, None]
+        A[:, :, p] = 0.0
+        A -= v[:, :, None] * yd[:, None, :]
+        A[:, p, :] = yd
+        sign[p] = -1.0
+    return A
+
+
 def inverse_smem_bytes(K: int) -> int:
-    """Shared memory of one block of the inverse kernel: the factor and the
-    K right-hand sides, each K x (K+1) floats, and the K pivots.  K up to
-    169 fits a Hopper block's 227 KB."""
-    return (2 * K * (K + 1) + K) * 4
+    """Shared memory of one block of the inverse kernel: the matrix, staged
+    in row stride K+1, and, 16-byte aligned after it, the sweep's four
+    pivot vectors of 32*ceil(K/32) floats.  The sweep's register tile is
+    the tighter rule: K up to ``_build.SWEEP_MAX_K[256]`` = 192 (150 KB
+    here)."""
+    return (K * (K + 1) + 4 + 4 * (-(-K // 32) * 32)) * 4
 
 
 def ldlt_factor_solve_plain(M, b):
@@ -141,7 +168,9 @@ def ldlt_factor_solve(M, b):
     """Batched packed LDL^T factor + solve: (B, K, K), (B, K) -> (x, F, d).
 
     CUDA float32 launches the ``csrc/ldlt.cu`` kernel (one thread block per
-    matrix, the matrix in shared memory); CPU takes the plain version."""
+    matrix, the matrix in shared memory; it factors in float32 and
+    substitutes in float64 against that factor); CPU takes the plain
+    version."""
     B, K = _shape("ldlt_factor_solve", M, b)
     if M.device.type == "cpu":
         return ldlt_factor_solve_plain(M, b)
@@ -168,7 +197,11 @@ def ldlt_factor_solve(M, b):
 
 def ldlt_solve(F, d, b):
     """Solve (L D L^T) x = b for a batch: F, d from :func:`ldlt_factor` or
-    :func:`ldlt_factor_solve`, b (B, K) -> x (B, K)."""
+    :func:`ldlt_factor_solve`, b (B, K) -> x (B, K).
+
+    CUDA float32 launches the ``csrc/ldlt.cu`` kernel (one thread block per
+    matrix; it substitutes in float64 against the float32 factor and rounds
+    x to float32); CPU takes the plain version."""
     B, K = _shape("ldlt_solve", F, b)
     if d.shape != b.shape:
         raise ValueError(f"ldlt_solve: d has shape {tuple(d.shape)}, "
@@ -195,12 +228,14 @@ def ldlt_solve(F, d, b):
 
 def ldlt_inverse(M):
     """Batched explicit inverse of symmetric quasi-definite (B, K, K)
-    matrices via the unpivoted LDL^T.  Returns (B, K, K), unpadded.
+    matrices.  Returns (B, K, K), unpadded.
 
-    CUDA float32 launches the ``csrc/ldlt.cu`` inverse kernel (one thread
-    block per matrix; the factor and the K right-hand sides in shared
-    memory, so a K whose block does not fit raises, naming the shape); CPU
-    takes the plain version."""
+    CUDA float32 launches the ``csrc/ldlt.cu`` inverse kernel: one thread
+    block per matrix inverts it in registers by the unpivoted Gauss-Jordan
+    sweep (:func:`sweep_inverse_mirror` is that algorithm in PyTorch), so a
+    K above the sweep's tile (192) raises, naming the shape.  CPU
+    takes the plain version, which sweeps the identity through the LDL^T
+    factor as the JAX package does; the two agree to rounding."""
     if M.dim() != 3 or M.shape[1] != M.shape[2]:
         raise ValueError(f"ldlt_inverse: expected (B, K, K), got "
                          f"{tuple(M.shape)}")
@@ -211,6 +246,7 @@ def ldlt_inverse(M):
         raise ValueError(f"ldlt_inverse: no kernel for {M.device}")
     _check_cuda("ldlt_inverse", M)
     _build.check_smem(inverse_smem_bytes(K), f"ldlt_inverse at K={K}")
+    _build.check_sweep(K, _THREADS, f"ldlt_inverse at K={K}")
     lib = _build.library()
     M = M.contiguous()
     out = torch.empty_like(M)

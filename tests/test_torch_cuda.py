@@ -7,10 +7,14 @@ machine with a card and no JAX (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Inputs are well-conditioned (random diagonally dominant quasi-definite
-KKTs in the kite's BBT pattern, with and without a border; dense
-quasi-definite boxADMM KKTs at the spline QP's shape, at K=132 and
+KKTs in the kite's and the race car's BBT patterns, and in a bordered one;
+dense quasi-definite boxADMM KKTs at the spline QP's shape, at K=132 and
 box-only; diagonally dominant matrices for the LDL^T factor), so float32
-results of kernel and plain version agree to 1e-4 relative.
+results of kernel and plain version agree to 1e-4 relative.  The BBT
+kernels and the explicit inverse compute by another algorithm than their
+plain versions (explicit block inverses by a Gauss-Jordan sweep, where the
+plain versions substitute through LDL^T factors); against the PyTorch
+mirror of their own algorithm they agree to 1e-5 relative per lane.
 """
 import numpy as np
 import pytest
@@ -25,6 +29,10 @@ from polympc_torch.ops.structure import (  # noqa: E402
     unpermute_vec)
 
 SIGMA, ALPHA, ITERS = 1e-6, 1.6, 50
+# kernel vs the mirror of its own algorithm: the same operations, summed in
+# another order, on well-conditioned inputs
+MIRROR_RTOL = 1e-5
+STRUCTURES = ["kite", "bordered", "race_car"]
 
 
 @pytest.fixture
@@ -37,10 +45,22 @@ def dev():
     return torch.device("cuda")
 
 
-def _structure(border):
-    if not border:
+def _structure(name):
+    """The kite's BBT structure (S=2, k=72), a bordered one (the kite's
+    shape with two parameters) and the race car's (S=2, k=96: nx=6, nu=3
+    on Chebyshev(5) x 2)."""
+    if name == "kite":
         return kite_problem("cpu")[3].qp.structure
-    return bbt_structure(11, 5, 2, 0, 2, 0, 5, 2)
+    if name == "bordered":
+        return bbt_structure(11, 5, 2, 0, 2, 0, 5, 2)
+    return bbt_structure(11, 6, 3, 0, 0, 0, 5, 2)
+
+
+def _lane_rel(got, want):
+    """Largest per-lane relative inf-norm difference."""
+    B = got.shape[0]
+    return ((got - want).reshape(B, -1).abs().amax(1)
+            / want.reshape(B, -1).abs().amax(1)).max().item()
 
 
 def _epoch_case(st, B, dev, seed=0):
@@ -61,7 +81,7 @@ def _epoch_case(st, B, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("border", [False, True], ids=["kite", "bordered"])
+@pytest.mark.parametrize("border", STRUCTURES, ids=STRUCTURES)
 def test_bbt_epoch_kernel_matches_plain(border, dev):
     st = _structure(border)
     _, args = _epoch_case(st, 64, dev)
@@ -74,7 +94,32 @@ def test_bbt_epoch_kernel_matches_plain(border, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("border", [False, True], ids=["kite", "bordered"])
+@pytest.mark.parametrize("threads", [128, 256])
+@pytest.mark.parametrize("border", STRUCTURES, ids=STRUCTURES)
+def test_bbt_epoch_kernel_matches_mirror(border, threads, dev):
+    st = _structure(border)
+    _, args = _epoch_case(st, 64, dev, seed=5)
+    got = bbt_kernel._launch_epoch(*args, st, SIGMA, ALPHA, ITERS, threads)
+    want = bbt_kernel.bbt_epoch_mirror(*args, st, SIGMA, ALPHA, ITERS)
+    assert _lane_rel(got, want) <= MIRROR_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", STRUCTURES, ids=STRUCTURES)
+def test_bbt_solve_kernel_matches_mirror(border, dev):
+    st = _structure(border)
+    M = random_bbt_kkt(st, 64, seed=6, device=dev)
+    b = torch.as_tensor(np.random.default_rng(7).normal(size=(64, st.K)),
+                        dtype=torch.float32, device=dev)
+    blocks = gather_blocks(M, st)
+    rhs = permute_vec(b, st, 0.0)
+    got = bbt_kernel.bbt_solve(*blocks, rhs, st)
+    want = bbt_kernel.bbt_solve_mirror(*blocks, rhs, st)
+    assert _lane_rel(got, want) <= MIRROR_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", STRUCTURES, ids=STRUCTURES)
 def test_bbt_solve_kernel_matches_plain_and_dense(border, dev):
     st = _structure(border)
     M = random_bbt_kkt(st, 64, seed=3, device=dev)
@@ -222,6 +267,17 @@ def test_ldlt_inverse_kernel_matches_plain(nz, m, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("nz,m", [(5, 3), (42, 30), (99, 70), (112, 80)],
+                         ids=["K8", "K72", "K169", "K192"])
+def test_ldlt_inverse_kernel_matches_mirror(nz, m, dev):
+    M = torch.as_tensor(_quasi_definite(128, nz, m, seed=nz + 1),
+                        dtype=torch.float32, device=dev)
+    got = ldlt.ldlt_inverse(M)
+    assert _lane_rel(got, ldlt.sweep_inverse_mirror(M)) <= MIRROR_RTOL
+
+
+@pytest.mark.cuda
 def test_ldlt_inverse_refuses_a_block_too_large(dev):
-    with pytest.raises(ValueError, match="K=170"):
-        ldlt.ldlt_inverse(torch.eye(170, device=dev)[None])
+    ldlt.ldlt_inverse(torch.eye(192, device=dev)[None])
+    with pytest.raises(ValueError, match="K=193"):
+        ldlt.ldlt_inverse(torch.eye(193, device=dev)[None])

@@ -283,15 +283,17 @@ def test_plain_ldlt_inverse_matches_jax(inverse_case, dtype, tol):
 
 def test_ldlt_inverse_wrapper_checks():
     """No kernel on a device without one; a non-square input raises; the
-    fit rule admits K up to 169 in a Hopper block and refuses, naming the
+    fit rule (the matrix staged in shared memory in row stride K+1 beside
+    four aligned pivot vectors, and held in the sweep's register tile)
+    admits K up to 192 at the kernel's 256 threads and refuses, naming the
     shape, above."""
     with pytest.raises(ValueError, match="no kernel"):
         ldlt.ldlt_inverse(torch.empty((2, 8, 8), device="meta"))
     with pytest.raises(ValueError, match=r"\(B, K, K\)"):
         ldlt.ldlt_inverse(torch.zeros((2, 8, 7), dtype=torch.float64))
-    assert ldlt.inverse_smem_bytes(169) <= _build.SMEM_LIMIT_BYTES
-    assert ldlt.inverse_smem_bytes(170) > _build.SMEM_LIMIT_BYTES
-    assert ldlt.inverse_smem_bytes(72) == (2 * 72 * 73 + 72) * 4
-    with pytest.raises(ValueError, match="K=170"):
-        _build.check_smem(ldlt.inverse_smem_bytes(170), "ldlt_inverse at "
-                          "K=170")
+    assert ldlt.inverse_smem_bytes(192) <= _build.SMEM_LIMIT_BYTES
+    assert ldlt.inverse_smem_bytes(72) == (72 * 73 + 4 + 4 * 96) * 4
+    assert ldlt._THREADS == 256 and _build.SWEEP_MAX_K[256] == 192
+    _build.check_sweep(192, 256, "ldlt_inverse at K=192")
+    with pytest.raises(ValueError, match="K=193"):
+        _build.check_sweep(193, 256, "ldlt_inverse at K=193")

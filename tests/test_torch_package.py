@@ -1,7 +1,8 @@
 """Package-level checks of the PyTorch port (polympc_torch):
 
-  * no file of the port, and not chip_smoke.py or trace_port.py, imports
-    JAX or the JAX package (an AST scan): the card's machine has no JAX;
+  * no file of the port, and not chip_smoke.py, trace_port.py,
+    kernel_ab.py or ldlt_solve_orders.py, imports JAX or the JAX package
+    (an AST scan): the card's machine has no JAX;
   * the committed JAX reference of the certified kite batch loads, and its
     x0s are bench.py's;
   * the port imports and runs its small pieces where there is no nvcc and
@@ -42,7 +43,9 @@ def _imports(path):
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "trace_port.py"]
+                                         ROOT / "trace_port.py",
+                                         ROOT / "kernel_ab.py",
+                                         ROOT / "ldlt_solve_orders.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
