@@ -18,7 +18,10 @@ Phases, each printing its own lines and raising on failure:
      kernels and the explicit inverse also against the PyTorch mirror of
      their own algorithm (explicit block inverses by a Gauss-Jordan
      sweep), and the BBT epoch timed at 128 and 256 threads per block at
-     the kite's and the race car's shapes;
+     the kite's and the race car's shapes, the dense epoch at one, two and
+     four instances (warps) a block; each LDL^T kernel's and the dense
+     epoch's launch (block size, shared memory, blocks an SM by the
+     occupancy API and by the shared memory alone);
   4. main paths, each with the launch counts set to 0 just before it and
      read just after:
        kite: bench.py's certified kite batch (B=512), one warm-up then the
@@ -567,6 +570,57 @@ def epoch_fns(**kw):
             lambda *a: torch.cat(ae.admm_epoch_plain(*a, **kw), 1))
 
 
+def epoch_by_threads(ae, args, kw):
+    """The dense epoch's time at one, two and four instances (warps) a
+    block on the same inputs."""
+    return {f"{t} threads, {t // 32} instance(s) a block": cuda_ms(
+        lambda: ae.admm_epoch_batched(*args, threads=t, **kw))
+        for t in (32, 64, 128)}
+
+
+def epoch_launch(ae, n, m):
+    """The dense epoch's launch at this shape: block size, instances and
+    shared memory a block, and blocks an SM by the occupancy API beside
+    the shared memory's count; raises if the kernel's and the wrapper's
+    shared memory disagree."""
+    from polympc_torch.ops import _build
+    t = ae.epoch_threads(n + m)
+    smem = ae.epoch_smem_bytes(n, m, t)
+    lib = _build.library()
+    if lib.pt_admm_epoch_smem_bytes(n, m, t) != smem:
+        raise RuntimeError("admm_epoch: the wrapper's fit rule and the "
+                           "kernel's shared memory disagree")
+    out = {"threads": t, "instances_per_block": t // 32, "smem_bytes": smem,
+           "blocks_per_sm": lib.pt_admm_epoch_blocks_per_sm(n, m, t),
+           "blocks_per_sm_by_smem": _build.blocks_per_sm(smem, t)}
+    say("launch", f"admm_epoch n={n} m={m}: {out}")
+    return out
+
+
+def ldlt_launch(which, K):
+    """An LDL^T kernel's launch at K (which: 0 ldlt_factor, 1
+    ldlt_factor_solve, 2 ldlt_solve): 256 threads, the shared memory and
+    blocks an SM by the occupancy API; raises if the kernel's and the
+    wrapper's shared memory disagree, or if the occupancy API holds fewer
+    blocks than the shared memory does (registers would then limit it)."""
+    from polympc_torch.ops import _build
+    from polympc_torch.ops import ldlt
+    smem = ldlt.ldlt_smem_bytes(K)
+    lib = _build.library()
+    if lib.pt_ldlt_smem_bytes(K) != smem:
+        raise RuntimeError(f"ldlt at K={K}: the wrapper's fit rule and the "
+                           "kernel's shared memory disagree")
+    out = {"threads": ldlt._THREADS, "smem_bytes": smem,
+           "blocks_per_sm": lib.pt_ldlt_blocks_per_sm(which, K),
+           "blocks_per_sm_by_smem": _build.blocks_per_sm(smem, ldlt._THREADS)}
+    say("launch", f"{('ldlt_factor', 'ldlt_factor_solve', 'ldlt_solve')[which]}"
+                  f" K={K}: {out}")
+    if out["blocks_per_sm"] < out["blocks_per_sm_by_smem"]:
+        raise RuntimeError(f"ldlt at K={K}: the occupancy API holds fewer "
+                           "blocks an SM than the shared memory does")
+    return out
+
+
 def phase_parity_dense(dev, results):
     """The dense boxADMM epoch and the LDL^T factor: at the spline QP's
     first Ruiz-scaled epoch (B=4096, K=47), on random well-conditioned
@@ -598,34 +652,32 @@ def phase_parity_dense(dev, results):
         rel = check_tight("admm_epoch", kern, plain, case, (), EPOCH_RTOL)
         say("parity", f"admm_epoch random quasi-definite B=512 n={nn} "
                       f"m={mm}: rel {rel:.2e} (tol {EPOCH_RTOL})")
-    by_threads = {t: cuda_ms(lambda: ae.admm_epoch_batched(
-        *spline, threads=t, **kw)) for t in (64, 128, 256)}
+    by_threads = epoch_by_threads(ae, spline, kw)
     k132 = random_dense_epoch(77, 55, 512, rng, dev)
-    by_threads_132 = {t: cuda_ms(lambda: ae.admm_epoch_batched(
-        *k132, threads=t, **kw)) for t in (64, 128, 256)}
     results["admm_epoch"] = {
         **err, **timing(lambda: kern(*spline), lambda: plain(*spline), None,
                         bound_admm_epoch(B, n, m, qs.check_every)),
         "shape": f"B={B} n={n} m={m} iters={qs.check_every}",
-        "threads": ae.epoch_threads(n + m),
+        "launch": epoch_launch(ae, n, m),
         "ms_by_threads": by_threads,
-        "ms_by_threads_K132_B512": by_threads_132,
-        "smem_bytes": int(ae.epoch_smem_bytes(n, m))}
-    if _build.library().pt_admm_epoch_smem_bytes(n, m) != \
-            ae.epoch_smem_bytes(n, m):
-        raise RuntimeError("admm_epoch: the wrapper's fit rule and the "
-                           "kernel's shared memory disagree")
+        "ms_by_threads_K132_B512": epoch_by_threads(ae, k132, kw),
+        "launch_K132": epoch_launch(ae, 77, 55)}
     say("parity", f"admm_epoch at the spline QP's first scaled epoch "
                   f"B={B} K={n + m}: {results['admm_epoch']}")
 
     for K in (132, 165):
         A, _ = diag_dominant(512, K, rng, dev)
-        flat = lambda F, d: torch.cat([F.flatten(1), d], 1)
+        # the upper triangle (d on its diagonal) and d: the kernel's strict
+        # lower triangle is zero, the plain version's the recurrence's
+        # scratch, and no caller reads it
+        upper = torch.triu(torch.ones(K, K, dtype=torch.bool, device=dev))
+        flat = lambda F, d: torch.cat([F[:, upper], d], 1)
         rel = check_tight("ldlt_factor", lambda M: flat(*ldlt.ldlt_factor(M)),
                           lambda M: flat(*ldlt.ldlt_factor_plain(M)), (A,),
                           (), LDLT_RTOL)
         say("parity", f"ldlt_factor random diagonally dominant B=512 K={K}: "
-                      f"F and d rel {rel:.2e} (tol {LDLT_RTOL})")
+                      f"F's upper triangle and d rel {rel:.2e} (tol "
+                      f"{LDLT_RTOL})")
 
 
 def race_car_inputs(dev):
@@ -728,6 +780,8 @@ def refine_checks(Ms, M32, r32):
     B, K = r32.shape
     rs = r32.double()
     out = {}
+    launch = {name: ldlt_launch(which, K) for which, name in enumerate(
+        ("ldlt_factor", "ldlt_factor_solve", "ldlt_solve"))}
     xk, _, _ = ldlt.ldlt_factor_solve(M32, r32)
     xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M32, r32)
     sync()
@@ -741,7 +795,8 @@ def refine_checks(Ms, M32, r32):
                  lambda: ldlt.ldlt_factor_solve_plain(M32, r32),
                  library_ms("ldlt_factor_solve",
                             lambda: torch.linalg.solve(M32, r32)),
-                 bound_ldlt("factor_solve", B, K))}
+                 bound_ldlt("factor_solve", B, K)),
+        "launch": launch["ldlt_factor_solve"]}
     sk = ldlt.ldlt_solve(Fp, dp, r32)
     sp = ldlt.ldlt_solve_plain(Fp, dp, r32)
     sync()
@@ -756,7 +811,8 @@ def refine_checks(Ms, M32, r32):
                  lambda: ldlt.ldlt_solve_plain(Fp, dp, r32),
                  library_ms("ldlt_solve (torch.linalg.ldl_solve on the "
                             "unpivoted factor)", ldl_solve),
-                 bound_ldlt("solve", B, K))}
+                 bound_ldlt("solve", B, K)),
+        "launch": launch["ldlt_solve"]}
     # the factor alone, held on the factor itself against the plain version
     # in float64, and through the residual of the pair a caller runs
     # (ldlt_factor, then ldlt_solve): summation-order differences in the
@@ -765,6 +821,10 @@ def refine_checks(Ms, M32, r32):
     # factor's residual under other sweeps
     Fk, dk = ldlt.ldlt_factor(M32)
     err = check_factor_against_f64("ldlt_factor", Fk, dk, M32)
+    if err["max_abs_err"] != 0.0:
+        raise RuntimeError(f"ldlt_factor: the factor differs from the plain "
+                           f"version's by {err['max_abs_err']:.3e}; the "
+                           "kernels round as it does, bit for bit")
     fk = ldlt.ldlt_solve(Fk, dk, r32)
     sync()
     rk = rel_residual(Ms, fk, rs)
@@ -776,7 +836,8 @@ def refine_checks(Ms, M32, r32):
                  lambda: ldlt.ldlt_factor_plain(M32),
                  library_ms("ldlt_factor (torch.linalg.ldl_factor, "
                             "pivoted)", lambda: torch.linalg.ldl_factor(M32)),
-                 bound_ldlt("factor", B, K))}
+                 bound_ldlt("factor", B, K)),
+        "launch": launch["ldlt_factor"]}
     return out
 
 

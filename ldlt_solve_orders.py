@@ -18,7 +18,9 @@ with every product and difference rounded alone, as the kernels round:
                  of the JAX package's ``_solve_sweeps``
   fp32 row/row, fp32 row/col   the other two combinations
   fp64 col/col   column sweeps in float64 against the float32 factor,
-                 rounded to float32 once: the kernels' sweeps now
+                 rounded to float32 once: each element's terms in the
+                 order of the kernels' panel substitution
+                 (ptk::solve_panels), so the kernels' result
 
 Each is held to chip_smoke.py's residual gate against the plain version
 (``ldlt_factor_solve_plain``: the same factor, then two

@@ -1,22 +1,35 @@
-// Block-cooperative primitives on shared memory, shared by the BBT epoch
-// kernels (bbt_epoch.cu), the dense LDL^T kernels (ldlt.cu) and the dense
-// boxADMM epoch (admm_epoch.cu): the unpivoted LDL^T factor and solve
-// (factor_block, solve_block), the explicit inverse by an in-place
-// Gauss-Jordan sweep (sweep_inverse), the block products that apply such
-// an inverse (block_matvec, warp_sums), and a block load (load_rows).
+// Primitives on shared memory, shared by the BBT epoch kernels
+// (bbt_epoch.cu), the dense LDL^T kernels (ldlt.cu) and the dense boxADMM
+// epoch (admm_epoch.cu):
+//   sub_product        x - a*b rounded as two operations (no fused
+//                      multiply-add), in float and double;
+//   packed_base,       the packed upper triangle: a symmetric matrix's
+//   packed_size        rows from the diagonal on, one after another;
+//   load_upper         a matrix's upper triangle into that packed form;
+//   factor_packed      the unpivoted LDL^T in place on the packed triangle,
+//                      by a block or by one warp, two pivots per sync, bit
+//                      for bit the plain version's;
+//   with_chunks        the factor's register chunks (K <= 352);
+//   solve_panels       (L D L^T) x = y in double against the packed float
+//                      factor, by panels of 32 pivots: a warp solves a
+//                      panel's triangle with shuffles, one barrier a panel;
+//   sweep_inverse      the explicit inverse by an in-place Gauss-Jordan
+//                      sweep held in registers, with_tile its tiles;
+//   block_matvec,      the block products that apply such an inverse;
+//   warp_sums
+//   load_rows          a block of rows into shared memory.
 //
-// Packed storage, as in the JAX package (polympc_tpu/ops/ldlt.py): a (k, k)
-// block with row stride ldk holds L^T in its strict upper triangle
-// (F[i][c] = L[c][i] for c > i), the pivots d separately, and in its lower
-// triangle the Schur-complement values the recurrence left there (never
-// read).  ldk = k + 1 keeps column walks free of shared-memory bank
-// conflicts.
+// L^T convention, as in the JAX package (polympc_tpu/ops/ldlt.py): the
+// factor holds L^T in its strict upper triangle (F[i][c] = L[c][i] for
+// c > i) and the pivots d on its diagonal (and separately); the packed
+// kernels never store the lower triangle.  The row-stride (ldk = k + 1)
+// blocks of the sweep keep column walks free of bank conflicts.
 //
-// factor_block, solve_block and sweep_inverse are called by all threads of
-// the block and return after a __syncthreads(): their results are visible
-// to the whole block.  block_matvec, warp_sums and load_rows are called
-// by all threads too, but end without one: they are one phase of the
-// caller's.
+// factor_packed, solve_panels and sweep_inverse are called by all threads
+// of their group and return after a barrier (factor_packed: its group's
+// sync), so their results are visible to the whole group.  block_matvec,
+// warp_sums, load_rows and load_upper are called by all threads too, but
+// end without one: they are one phase of the caller's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -38,65 +51,269 @@ __device__ inline double sub_product(double x, double a, double b) {
   return __dsub_rn(x, __dmul_rn(a, b));
 }
 
-// In-place LDL^T of the (k, k) block F: pivot i reads row i (its
-// trailing part is column i by symmetry), applies the rank-1 update
-// F[j][c] -= F[i][j] * (F[i][c] / d_i) to every j, c > i, and scales row i
-// into L^T one pivot later, when no thread reads it any more.  One barrier
-// per pivot.
-template <typename T>
-__device__ void factor_block(T* F, T* d, int k, int ldk) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  __syncthreads();
-  for (int i = 0; i < k; ++i) {
-    const T* rowi = F + i * ldk;
-    const T di = rowi[i];
-    const T dinv = T(1) / di;
-    const int nt = k - i - 1;
-    for (int idx = tid; idx < nt * nt; idx += nthr) {
-      const int j = i + 1 + idx / nt;
-      const int c = i + 1 + idx % nt;
-      F[j * ldk + c] = sub_product(F[j * ldk + c], rowi[j], rowi[c] * dinv);
+// The packed upper triangle: row j of a symmetric (K, K) matrix from its
+// diagonal to column K-1, rows one after another, K(K+1)/2 elements in
+// all.  Row j starts at j*K - j(j-1)/2, so element (j, c), c >= j, lies at
+// packed_base(j, K) + c; a row's elements are contiguous, and the next
+// row's base is packed_base(j, K) + K - j - 1.
+__host__ __device__ inline int packed_base(int j, int K) {
+  return j * (2 * K - j - 1) / 2;
+}
+__host__ __device__ inline size_t packed_size(int K) {
+  return size_t(K) * (K + 1) / 2;
+}
+
+// Copy the upper triangle of the row-major (K, K) matrix M into the
+// packed P, by the nw warps of a group (w its warp in the group): warp w
+// the rows j = w (mod nw), its lanes 32 consecutive columns of a row at a
+// time, eight such loads in flight before they are stored.
+__device__ inline void load_upper(float* P, const float* __restrict__ M,
+                                  int K, int w, int nw) {
+  constexpr int U = 8;
+  const int lane = threadIdx.x & 31;
+  int j = w, c0 = w;  // warp-uniform: the next row and its next column
+  while (j < K) {
+    float e[U];
+    int at[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + lane;
+      at[u] = j < K && c < K ? packed_base(j, K) + c : -1;
+      e[u] = at[u] >= 0 ? M[size_t(j) * K + c] : 0.f;
+      c0 += 32;
+      if (c0 >= K) {
+        j += nw;
+        c0 = j;
+      }
     }
-    if (i > 0) {
-      const T dprev = T(1) / d[i - 1];
-      T* rowp = F + (i - 1) * ldk;
-      for (int c = i + tid; c < k; c += nthr) rowp[c] *= dprev;
-    }
-    if (tid == 0) d[i] = di;
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (at[u] >= 0) P[at[u]] = e[u];
   }
 }
 
-// Solve (L D L^T) Y = Y in place for nrhs right-hand sides stored as rows
-// of Y (Y[c * ldy + r]), against a block factored by factor_block, in the
-// arithmetic of Y's type V (which may be wider than the factor's T).
-// Forward and backward sweeps are both column-oriented (axpy per pivot,
-// one barrier per pivot).
-template <typename T, typename V>
-__device__ void solve_block(const T* F, const T* d, int k, int ldk, V* Y,
-                            int ldy, int nrhs) {
-  const int tid = threadIdx.x, nthr = blockDim.x;
+namespace detail {
+
+// Rows p and p+1 of a factored pair written as L^T (factor_packed): row p
+// scaled by 1 / d_p, row p+1 given pivot p's update, its diagonal d_{p+1},
+// and its trailing part scaled by 1 / d_{p+1}; the values and roundings of
+// ldlt_factor_plain.  One warp; every lane reads what it needs before any
+// writes.
+__device__ inline void finish_pair(float* P, int K, int p) {
+  const int lane = threadIdx.x & 31;
+  float* r0 = P + packed_base(p, K);
+  float* r1 = P + packed_base(p + 1, K);
+  const float dinv0 = 1.f / r0[p];
+  const float w01 = r0[p + 1];
+  const float d1 = sub_product(r1[p + 1], w01, w01 * dinv0);
+  const float dinv1 = 1.f / d1;
+  __syncwarp();
+  for (int c = p + 1 + lane; c < K; c += 32) {
+    const float s0 = r0[c] * dinv0;
+    r0[c] = s0;
+    if (c > p + 1) r1[c] = sub_product(r1[c], w01, s0) * dinv1;
+  }
+  if (lane == 0) r1[p + 1] = d1;
+}
+
+}  // namespace detail
+
+// In-place LDL^T of the packed upper triangle P by a group of nw warps (w
+// its warp in the group) that sync() synchronises: a block
+// (__syncthreads) or one warp (__syncwarp).  Pivots go in pairs (i, i+1):
+// every thread reads rows i and i+1, forms pivot i's update of row i+1
+// itself, and keeps in registers both pivots' scaled rows at its columns
+// (lane l the columns c = l (mod 32), TC = ceil(K/32) of them); then warp
+// w applies both rank-1 updates, P[j][c] -= P[i][j] P[i][c] / d_i and then
+// pivot i+1's, to the rows j > i+1, j = w (mod nw), of the trailing upper
+// triangle (c >= j): one load, two products, two differences and one store
+// per element and pair.  Rows i and i+1 are written as L^T (and d_{i+1})
+// one pair later, when no thread reads them any more.  Every element of
+// the upper triangle receives the operations of ldlt_factor_plain in its
+// order, each rounded alone (sub_product), so the factor equals the plain
+// version's bit for bit, d on the diagonal.  One sync per pair;
+// K(K+1)(K+2)/6 element updates, half those of the square.
+template <int TC, typename Sync>
+__device__ void factor_packed(float* P, int K, int w, int nw, Sync sync) {
+  const int lane = threadIdx.x & 31;
+  sync();
+  int i = 0;
+  for (; i + 1 < K; i += 2) {
+    const float* r0 = P + packed_base(i, K);
+    const float* r1 = P + packed_base(i + 1, K);
+    const float dinv0 = 1.f / r0[i];
+    const float w01 = r0[i + 1];
+    const float dinv1 = 1.f / sub_product(r1[i + 1], w01, w01 * dinv0);
+    float s0[TC], s1[TC];
+#pragma unroll
+    for (int t = 0; t < TC; ++t) {
+      const int c = lane + 32 * t;
+      s0[t] = s1[t] = 0.f;
+      if (c > i + 1 && c < K) {
+        s0[t] = r0[c] * dinv0;
+        s1[t] = sub_product(r1[c], w01, s0[t]) * dinv1;
+      }
+    }
+    int j = i + 2 + ((w - i - 2) % nw + nw) % nw;
+    for (; j < K; j += nw) {
+      float* rowj = P + packed_base(j, K);
+      const float a = r0[j];
+      const float b = sub_product(r1[j], w01, a * dinv0);
+      const int t0 = j >> 5;
+#pragma unroll
+      for (int t = 0; t < TC; ++t) {
+        if (t < t0) continue;
+        const int c = lane + 32 * t;
+        if ((t > t0 || c >= j) && (t + 1 < TC || c < K))
+          rowj[c] = sub_product(sub_product(rowj[c], a, s0[t]), b, s1[t]);
+      }
+    }
+    if (i >= 2 && (i / 2 - 1) % nw == w) detail::finish_pair(P, K, i - 2);
+    sync();
+  }
+  // the last pair; a last single pivot (K odd) updates nothing
+  if (i >= 2 && (i / 2 - 1) % nw == w) detail::finish_pair(P, K, i - 2);
+  sync();
+}
+
+// The register tiles factor_packed is built for: TC = ceil(K / 32) up to
+// 11 (K <= 352).  with_chunks calls f(TC) with TC as an integral constant
+// and returns its result, or cudaErrorInvalidValue for a larger K.
+constexpr int MAX_CHUNKS = 11;
+
+template <int TC, typename F>
+int chunk_case(int tc, F& f) {
+  if constexpr (TC > MAX_CHUNKS) {
+    return int(cudaErrorInvalidValue);
+  } else {
+    if (tc == TC) return f(std::integral_constant<int, TC>{});
+    return chunk_case<TC + 1>(tc, f);
+  }
+}
+
+template <typename F>
+int with_chunks(int K, F&& f) {
+  return chunk_case<1>(K < 1 ? 1 : (K + 31) / 32, f);
+}
+
+namespace detail {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// Rows R0 + l (l < n <= 32) of a unit lower triangle solved in place by
+// one warp: lane l holds y[R0 + l] in v, pivot jj's final value goes to
+// the lanes below it by a shuffle, and each updates itself from the
+// packed row R0 + jj (contiguous across the lanes).
+__device__ inline double forward_diag(const float* P, int K, int R0, int n,
+                                      double v) {
+  const int lane = threadIdx.x & 31;
+  int b = packed_base(R0, K);
+  for (int jj = 0; jj + 1 < n; ++jj) {
+    const double yj = __shfl_sync(FULL, v, jj);
+    if (lane > jj && lane < n) v = sub_product(v, double(P[b + R0 + lane]), yj);
+    b += K - (R0 + jj) - 1;
+  }
+  return v;
+}
+
+// The unit upper triangle of rows R0 + l (l < n), lane l holding row
+// R0 + l: pivot cc's value goes up to the lanes above it, each reading its
+// own packed row at column R0 + cc.
+__device__ inline double backward_diag(const float* P, int K, int R0, int n,
+                                       double v) {
+  const int lane = threadIdx.x & 31;
+  const int b = packed_base(lane < n ? R0 + lane : R0, K) + R0;
+  for (int cc = n - 1; cc > 0; --cc) {
+    const double xc = __shfl_sync(FULL, v, cc);
+    if (lane < cc) v = sub_product(v, double(P[b + cc]), xc);
+  }
+  return v;
+}
+
+// v - sum_j P[j][r] y[j] over the panel's pivots j0 <= j < j1, in that
+// order, each term rounded alone (row r of the forward sweep).
+__device__ inline double forward_cols(const float* P, int K, int j0, int j1,
+                                      int r, double v, const double* y) {
+  int b = packed_base(j0, K);
+  for (int j = j0; j < j1; ++j) {
+    v = sub_product(v, double(P[b + r]), y[j]);
+    b += K - j - 1;
+  }
+  return v;
+}
+
+// v - sum_c P[r][c] y[c] over the columns c0 <= c < c1, from the last
+// down (row r of the backward sweep).
+__device__ inline double backward_cols(const float* P, int K, int c0, int c1,
+                                       int r, double v, const double* y) {
+  const float* row = P + packed_base(r, K);
+  for (int c = c1 - 1; c >= c0; --c) v = sub_product(v, double(row[c]), y[c]);
+  return v;
+}
+
+}  // namespace detail
+
+// Solve (L D L^T) x = y in place, y in double in shared memory, against
+// the packed factor P (float; L^T in its strict upper triangle) and its
+// pivots d, by the whole block (at least two warps), in panels of 32
+// pivots.  Forward: warp 0 solves a panel's unit triangle with shuffles
+// (detail::forward_diag); after a barrier the other warps update every row
+// below the next panel with this panel's 32 columns, while warp 0 updates
+// the next panel's rows itself and solves it: one barrier per panel.
+// Then y /= d, and the backward sweep the same way from the last panel
+// up.  Every element receives the terms of the column-oriented sweeps in
+// their order (forward j ascending, backward c descending), each rounded
+// alone, so the result does not depend on the panel size.  2 ceil(K/32)
+// + 1 barriers in all.
+__device__ inline void solve_panels(const float* P, const float* d, int K,
+                                    double* y) {
+  const int lane = threadIdx.x & 31;
+  const bool lead = threadIdx.x < 32;
+  const int t1 = int(threadIdx.x) - 32, n1 = int(blockDim.x) - 32;
+  const int NP = (K + 31) / 32;
   __syncthreads();
-  for (int j = 0; j < k - 1; ++j) {
-    const int nt = k - j - 1;
-    const T* rowj = F + j * ldk;
-    for (int idx = tid; idx < nrhs * nt; idx += nthr) {
-      const int c = idx / nt;
-      const int r = j + 1 + idx % nt;
-      Y[c * ldy + r] = sub_product(Y[c * ldy + r], V(rowj[r]), Y[c * ldy + j]);
+  if (lead) {
+    const int n = min(32, K);
+    double v = lane < n ? y[lane] : 0.0;
+    v = detail::forward_diag(P, K, 0, n, v);
+    if (lane < n) y[lane] = v;
+  }
+  __syncthreads();
+  for (int p = 0; p + 1 < NP; ++p) {
+    const int P0 = 32 * p, P1 = P0 + 32;
+    if (lead) {
+      const int n = min(32, K - P1), r = P1 + lane;
+      double v = lane < n ? detail::forward_cols(P, K, P0, P1, r, y[r], y)
+                          : 0.0;
+      v = detail::forward_diag(P, K, P1, n, v);
+      if (lane < n) y[r] = v;
+    } else {
+      for (int r = P1 + 32 + t1; r < K; r += n1)
+        y[r] = detail::forward_cols(P, K, P0, P1, r, y[r], y);
     }
     __syncthreads();
   }
-  for (int idx = tid; idx < nrhs * k; idx += nthr) {
-    const int c = idx / k, r = idx % k;
-    Y[c * ldy + r] /= V(d[r]);
+  {
+    const int R0 = 32 * (NP - 1), n = K - R0;
+    if (lead) {
+      double v = lane < n ? y[R0 + lane] / double(d[R0 + lane]) : 0.0;
+      v = detail::backward_diag(P, K, R0, n, v);
+      if (lane < n) y[R0 + lane] = v;
+    } else {
+      for (int r = t1; r < R0; r += n1) y[r] /= double(d[r]);
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  for (int i = k - 1; i > 0; --i) {
-    for (int idx = tid; idx < nrhs * i; idx += nthr) {
-      const int c = idx / i, r = idx % i;
-      Y[c * ldy + r] =
-          sub_product(Y[c * ldy + r], V(F[r * ldk + i]), Y[c * ldy + i]);
+  for (int p = NP - 1; p > 0; --p) {
+    const int P0 = 32 * p, P1 = min(P0 + 32, K), R0 = P0 - 32;
+    if (lead) {
+      const int r = R0 + lane;
+      double v = detail::backward_cols(P, K, P0, P1, r, y[r], y);
+      v = detail::backward_diag(P, K, R0, 32, v);
+      y[r] = v;
+    } else {
+      for (int r = t1; r < R0; r += n1)
+        y[r] = detail::backward_cols(P, K, P0, P1, r, y[r], y);
     }
     __syncthreads();
   }

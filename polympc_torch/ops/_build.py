@@ -20,10 +20,16 @@ import time
 from pathlib import Path
 
 __all__ = ["library", "build", "check", "LAUNCHES", "reset_launches",
-           "SMEM_LIMIT_BYTES", "SWEEP_MAX_K", "check_sweep"]
+           "SMEM_LIMIT_BYTES", "SWEEP_MAX_K", "check_sweep", "blocks_per_sm"]
 
 # dynamic shared memory one block may opt into on sm_90 (232,448 bytes)
 SMEM_LIMIT_BYTES = 227 * 1024
+# an H100 SM: 228 KB of shared memory, of which each resident block takes
+# 1 KB for itself beside its own; 2048 threads; 32 blocks
+SM_SMEM_BYTES = 228 * 1024
+SM_BLOCK_RESERVED_BYTES = 1024
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 # Threads per block -> the largest block the Gauss-Jordan sweep's register
 # tile holds (csrc/ldlt_device.cuh, with_tile: ceil(k / 32) rows per lane,
@@ -58,11 +64,13 @@ _SIGNATURES = {
     "pt_bbt_tile_fits": (_I, [_I] * 3),
     "pt_bbt_epoch_blocks_per_sm": (_I, [_I] * 5),
     "pt_admm_epoch_f32": (_I, [_P] * 18 + [_I, _I, _I, _F, _F, _I, _I, _P]),
-    "pt_admm_epoch_smem_bytes": (_Z, [_I, _I]),
+    "pt_admm_epoch_smem_bytes": (_Z, [_I] * 3),
+    "pt_admm_epoch_blocks_per_sm": (_I, [_I] * 3),
     "pt_ldlt_factor_f32": (_I, [_P] * 3 + [_I, _I, _I, _P]),
     "pt_ldlt_factor_solve_f32": (_I, [_P] * 5 + [_I, _I, _I, _P]),
     "pt_ldlt_solve_f32": (_I, [_P] * 4 + [_I, _I, _I, _P]),
     "pt_ldlt_smem_bytes": (_Z, [_I]),
+    "pt_ldlt_blocks_per_sm": (_I, [_I, _I]),
     "pt_ldlt_inverse_f32": (_I, [_P] * 2 + [_I, _I, _I, _P]),
     "pt_ldlt_inverse_smem_bytes": (_Z, [_I]),
     "pt_ldlt_inverse_fits": (_I, [_I]),
@@ -168,6 +176,15 @@ def check_sweep(k: int, threads: int, what: str):
         raise ValueError(f"{what}: blocks of {k} rows; at {threads} threads "
                          "per block the sweep's register tile holds up to "
                          f"{SWEEP_MAX_K[threads]}")
+
+
+def blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of ``threads`` threads and ``smem`` bytes of dynamic shared
+    memory one H100 SM holds by those two counts alone (registers aside:
+    the kernels' launch bounds keep them from being the limit, and
+    ``chip_smoke.py`` holds this count against the occupancy API's)."""
+    by_smem = SM_SMEM_BYTES // (smem + SM_BLOCK_RESERVED_BYTES)
+    return min(by_smem, SM_THREADS // threads, SM_BLOCKS)
 
 
 def stream_of(t):

@@ -10,11 +10,12 @@ the BBT structure runs ops/bbt_kernel.py instead.
 :func:`admm_epoch_plain` is the plain PyTorch version (unpivoted packed
 LDL^T from ops/ldlt.py, then the iterations); :func:`admm_epoch_batched`
 launches the hand-written kernel ``csrc/admm_epoch.cu`` for CUDA float32
-tensors (one thread block per instance, the factor and the state in shared
-memory for the whole epoch), takes the plain version for CPU tensors, and
-raises for anything else.  ``m = 0`` (a box-only QP) is the same function
-with an empty dual block.  No padding: the TPU kernel's n -> n8, m -> m8
-padding follows its sublane layout, which Hopper does not have.
+tensors (one warp per instance, its packed factor in shared memory and its
+state in registers for the whole epoch), takes the plain version for CPU
+tensors, and raises for anything else.  ``m = 0`` (a box-only QP) is the
+same function with an empty dual block.  No padding: the TPU kernel's
+n -> n8, m -> m8 padding follows its sublane layout, which Hopper does not
+have.
 """
 from __future__ import annotations
 
@@ -27,28 +28,39 @@ __all__ = ["admm_epoch_batched", "admm_epoch_plain", "epoch_kernel_fits",
            "epoch_smem_bytes", "epoch_threads"]
 
 
-def epoch_smem_bytes(n: int, m: int) -> int:
-    """Dynamic shared memory of one instance of the kernel: the (K, K+1)
-    factor, its pivots, the right-hand side, seven primal vectors (h, xl,
-    xu, rb, x, q, yb) and five dual ones (al, au, rho, z, y), float32.
-    ``pt_admm_epoch_smem_bytes`` in the source computes the same."""
-    K = n + m
-    return (K * (K + 1) + 2 * K + 7 * n + 5 * m) * 4
+# instances (one warp each) per block at most
+_INSTANCES = 4
+# the kernel's register slots a lane (csrc/ldlt_device.cuh, MAX_CHUNKS)
+_SLOTS_MAX_K = 352
 
 
-def epoch_kernel_fits(n: int, m: int) -> bool:
-    """True if one instance's working set fits a Hopper block's shared
-    memory (K = n + m up to 237); a larger KKT takes the LU epoch."""
-    return epoch_smem_bytes(n, m) <= _build.SMEM_LIMIT_BYTES
+def _instance_bytes(K: int) -> int:
+    """One instance's packed upper triangle, K(K+1)/2 float32."""
+    return K * (K + 1) // 2 * 4
 
 
 def epoch_threads(K: int) -> int:
-    """Block size by KKT size: a per-pivot sweep of a K-row system has at
-    most K - 1 independent updates, so small K gets small blocks (fewer
-    idle threads at every barrier, more blocks per SM).  Measured on an
-    H100 (PERF.md): 64 threads fastest at K=47 (B=4096), 256 at K=132
-    (B=512)."""
-    return 64 if K <= 64 else 256
+    """Block size of the kernel: one warp per instance, four instances per
+    block while four triangles fit a block's shared memory (K <= 169),
+    fewer above; 0 where none fits."""
+    return 32 * min(_INSTANCES, _build.SMEM_LIMIT_BYTES // _instance_bytes(K))
+
+
+def epoch_smem_bytes(n: int, m: int, threads: int | None = None) -> int:
+    """Dynamic shared memory of one block of the kernel at ``threads``
+    (:func:`epoch_threads` by default): each instance's packed upper
+    triangle, K(K+1)/2 float32 for K = n + m.  ``pt_admm_epoch_smem_bytes``
+    in the source computes the same."""
+    K = n + m
+    return (threads or epoch_threads(K)) // 32 * _instance_bytes(K)
+
+
+def epoch_kernel_fits(n: int, m: int) -> bool:
+    """True if one instance's triangle fits a Hopper block's shared memory
+    and the kernel's register slots (K = n + m up to 340); a larger KKT
+    takes the LU epoch."""
+    K = n + m
+    return K <= _SLOTS_MAX_K and epoch_threads(K) > 0
 
 
 def admm_epoch_plain(kkt, h, al, au, xl, xu, rho, rb, x, z, q, y, yb, *,
@@ -102,7 +114,8 @@ def admm_epoch_batched(kkt, h, al, au, xl, xu, rho, rb, x, z, q, y, yb, *,
     kkt (B, n+m, n+m) assembled KKT matrices for the current rho; h, xl,
     xu, rb, x, q, yb (B, n); al, au, rho, z, y (B, m).  Returns the new
     (x, z, q, y, yb).  ``threads`` overrides the block size of the kernel
-    (:func:`epoch_threads` by default)."""
+    (32, 64, 96 or 128: one instance per warp; :func:`epoch_threads` by
+    default)."""
     vecs_n = (h, xl, xu, rb, x, q, yb)
     vecs_m = (al, au, rho, z, y)
     B, n, m = _check(kkt, vecs_n, vecs_m)
@@ -117,9 +130,13 @@ def admm_epoch_batched(kkt, h, al, au, xl, xu, rho, rb, x, z, q, y, yb, *,
                             f"got {t.dtype}")
         if t.device != kkt.device:
             raise ValueError("admm_epoch: inputs on different devices")
-    lib = _build.library()
-    _build.check_smem(lib.pt_admm_epoch_smem_bytes(n, m),
+    if not epoch_kernel_fits(n, m):
+        raise ValueError(f"admm_epoch at n={n}, m={m}: a KKT of K={n + m} "
+                         "does not fit the kernel (K up to 340)")
+    threads = int(threads or epoch_threads(n + m))
+    _build.check_smem(epoch_smem_bytes(n, m, threads),
                       f"admm_epoch at n={n}, m={m}")
+    lib = _build.library()
     kkt = kkt.contiguous()
     ins = [t.contiguous() for t in (h, al, au, xl, xu, rho, rb,
                                     x, z, q, y, yb)]
@@ -130,8 +147,7 @@ def admm_epoch_batched(kkt, h, al, au, xl, xu, rho, rb, x, z, q, y, yb, *,
         rc = lib.pt_admm_epoch_f32(
             kkt.data_ptr(), *(t.data_ptr() for t in ins),
             *(t.data_ptr() for t in outs), B, n, m, float(sigma),
-            float(alpha), int(iters),
-            int(threads or epoch_threads(n + m)), _build.stream_of(kkt))
+            float(alpha), int(iters), threads, _build.stream_of(kkt))
     _build.check(rc, "admm_epoch")
     _build.LAUNCHES["admm_epoch"] += 1
     return tuple(outs)

@@ -8,6 +8,9 @@ the JAX package:
   d[i]    = D[i, i]                 (separate (K,) diagonal)
   lower triangle and diagonal of F = what the recurrence left there (the
   Schur-complement values; never read)
+The CUDA kernels hold only the upper triangle, packed by rows
+(:func:`packed_offset`), and return F with the diagonal d and zeros in
+the strict lower triangle; no caller reads that triangle.
 
 The factor is unpivoted on purpose: the certify pass (nlp/refine.py) feeds
 it indefinite Newton-KKT matrices and its iterative-refinement sweeps are
@@ -27,9 +30,42 @@ from polympc_torch.ops import _build
 
 __all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve", "ldlt_inverse",
            "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain",
-           "ldlt_inverse_plain", "sweep_inverse_mirror", "inverse_smem_bytes"]
+           "ldlt_inverse_plain", "sweep_inverse_mirror", "inverse_smem_bytes",
+           "panel_solve_mirror", "packed_offset", "ldlt_smem_bytes",
+           "LDLT_MAX_K"]
 
 _THREADS = 256
+# the factor's register chunks (csrc/ldlt_device.cuh, MAX_CHUNKS): 32 * 11
+_CHUNK_MAX_K = 352
+
+
+def packed_offset(j: int, K: int) -> int:
+    """Where row j of the kernels' packed upper triangle starts: rows j..K-1
+    of a (K, K) matrix from the diagonal on, one after another, so element
+    (j, c), c >= j, lies at packed_offset(j, K) + c - j."""
+    return j * K - j * (j - 1) // 2
+
+
+def ldlt_smem_bytes(K: int) -> int:
+    """Shared memory of one block of the factor, factor+solve and solve
+    kernels: the packed upper triangle K(K+1)/2 and d in float32, then,
+    8-byte aligned, the right-hand side in float64 (``pt_ldlt_smem_bytes``
+    in ``csrc/ldlt.cu`` computes the same).  36,696 bytes at K = 132 (six
+    blocks per SM), 56,760 at K = 165 (four)."""
+    floats = (K * (K + 1) // 2 + K + 1) // 2 * 2
+    return floats * 4 + K * 8
+
+
+def _max_k() -> int:
+    K = 1
+    while K < _CHUNK_MAX_K and ldlt_smem_bytes(K + 1) <= \
+            _build.SMEM_LIMIT_BYTES:
+        K += 1
+    return K
+
+
+# the largest K the LDL^T kernels hold (shared memory): 337
+LDLT_MAX_K = _max_k()
 
 
 def ldlt_factor_plain(M):
@@ -101,6 +137,45 @@ def sweep_inverse_mirror(M):
     return A
 
 
+def panel_solve_mirror(F, d, b, panel=32):
+    """The CUDA kernels' substitution (``ptk::solve_panels`` in
+    ``csrc/ldlt_device.cuh``) in plain PyTorch, in float64 against the
+    factor as given: panels of ``panel`` pivots, the unit triangle of each
+    solved, then its columns applied to the rows below (forward) or, from
+    the last panel up, to the rows above (backward).  Each element receives
+    its terms one at a time in the kernel's order (forward by ascending
+    pivot, backward by descending column), each product and difference
+    rounded alone, so on the card it equals the kernel's float64 result
+    before the final rounding to b's dtype.  Used by the tests and
+    ``chip_smoke.py``, not on the main path.  F (B, K, K), d (B, K), b
+    (B, K) -> x (B, K) in b's dtype."""
+    F64, y = F.double(), b.double().clone()
+    K = F.shape[-1]
+
+    def forward(j0, j1, r0, r1):
+        for j in range(j0, j1):
+            lo = max(r0, j + 1)
+            if lo < r1:
+                y[:, lo:r1] -= F64[:, j, lo:r1] * y[:, j, None]
+
+    def backward(c0, c1, r0, r1):
+        for c in range(c1 - 1, c0 - 1, -1):
+            hi = min(r1, c)
+            if r0 < hi:
+                y[:, r0:hi] -= F64[:, r0:hi, c] * y[:, c, None]
+
+    for p0 in range(0, K, panel):
+        p1 = min(p0 + panel, K)
+        forward(p0, p1, p0, p1)
+        forward(p0, p1, p1, K)
+    y /= d.double()
+    for p0 in reversed(range(0, K, panel)):
+        p1 = min(p0 + panel, K)
+        backward(p0, p1, p0, p1)
+        backward(p0, p1, 0, p0)
+    return y.to(b.dtype)
+
+
 def inverse_smem_bytes(K: int) -> int:
     """Shared memory of one block of the inverse kernel: the matrix, staged
     in row stride K+1, and, 16-byte aligned after it, the sweep's four
@@ -138,8 +213,12 @@ def ldlt_factor(M):
     package returns K rounded up to its sublane multiple; here F is K x K.
 
     CUDA float32 launches the ``csrc/ldlt.cu`` factor kernel (one thread
-    block per matrix, the matrix in shared memory); CPU takes the plain
-    version."""
+    block per matrix, its packed upper triangle in shared memory, K up to
+    :data:`LDLT_MAX_K`; a larger K raises); its F's strict upper triangle,
+    diagonal and d equal the plain version's bit for bit, and its strict
+    lower triangle is zero where the plain version leaves the recurrence's
+    Schur values (no caller reads that triangle; the JAX package documents
+    it as never read).  CPU takes the plain version."""
     if M.dim() != 3 or M.shape[1] != M.shape[2]:
         raise ValueError(f"ldlt_factor: expected (B, K, K), got "
                          f"{tuple(M.shape)}")
@@ -149,8 +228,8 @@ def ldlt_factor(M):
     if M.device.type != "cuda":
         raise ValueError(f"ldlt_factor: no kernel for {M.device}")
     _check_cuda("ldlt_factor", M)
+    _build.check_smem(ldlt_smem_bytes(K), f"ldlt_factor at K={K}")
     lib = _build.library()
-    _build.check_smem(lib.pt_ldlt_smem_bytes(K), f"ldlt_factor at K={K}")
     M = M.contiguous()
     F = torch.empty_like(M)
     d = M.new_empty((B, K))
@@ -168,8 +247,11 @@ def ldlt_factor_solve(M, b):
     """Batched packed LDL^T factor + solve: (B, K, K), (B, K) -> (x, F, d).
 
     CUDA float32 launches the ``csrc/ldlt.cu`` kernel (one thread block per
-    matrix, the matrix in shared memory; it factors in float32 and
-    substitutes in float64 against that factor); CPU takes the plain
+    matrix, its packed upper triangle in shared memory, K up to
+    :data:`LDLT_MAX_K`; it factors in float32 as :func:`ldlt_factor` does,
+    F's strict lower triangle zero where the plain version's holds the
+    recurrence's values, which no caller reads, and substitutes in float64
+    against that factor, :func:`panel_solve_mirror`); CPU takes the plain
     version."""
     B, K = _shape("ldlt_factor_solve", M, b)
     if M.device.type == "cpu":
@@ -177,9 +259,8 @@ def ldlt_factor_solve(M, b):
     if M.device.type != "cuda":
         raise ValueError(f"ldlt_factor_solve: no kernel for {M.device}")
     _check_cuda("ldlt_factor_solve", M, b)
+    _build.check_smem(ldlt_smem_bytes(K), f"ldlt_factor_solve at K={K}")
     lib = _build.library()
-    _build.check_smem(lib.pt_ldlt_smem_bytes(K),
-                      f"ldlt_factor_solve at K={K}")
     M, b = M.contiguous(), b.contiguous()
     x = torch.empty_like(b)
     F = torch.empty_like(M)
@@ -200,8 +281,9 @@ def ldlt_solve(F, d, b):
     :func:`ldlt_factor_solve`, b (B, K) -> x (B, K).
 
     CUDA float32 launches the ``csrc/ldlt.cu`` kernel (one thread block per
-    matrix; it substitutes in float64 against the float32 factor and rounds
-    x to float32); CPU takes the plain version."""
+    matrix; it reads F's upper triangle only, substitutes in float64
+    against that float32 factor by panels, :func:`panel_solve_mirror`, and
+    rounds x to float32); CPU takes the plain version."""
     B, K = _shape("ldlt_solve", F, b)
     if d.shape != b.shape:
         raise ValueError(f"ldlt_solve: d has shape {tuple(d.shape)}, "
@@ -211,8 +293,8 @@ def ldlt_solve(F, d, b):
     if F.device.type != "cuda":
         raise ValueError(f"ldlt_solve: no kernel for {F.device}")
     _check_cuda("ldlt_solve", F, d, b)
+    _build.check_smem(ldlt_smem_bytes(K), f"ldlt_solve at K={K}")
     lib = _build.library()
-    _build.check_smem(lib.pt_ldlt_smem_bytes(K), f"ldlt_solve at K={K}")
     F, d, b = F.contiguous(), d.contiguous(), b.contiguous()
     x = torch.empty_like(b)
     if B == 0:

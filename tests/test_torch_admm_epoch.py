@@ -214,10 +214,11 @@ def test_equilibrated_warm_start_matches_jax(spline_solves):
 
 def test_epoch_dispatch_by_shape(monkeypatch):
     """kkt_solver="kernel" without a structure runs the dense epoch while
-    the KKT fits a block's shared memory, and the LU epoch above that."""
-    assert ae.epoch_kernel_fits(32, 15) and ae.epoch_kernel_fits(200, 30)
-    assert not ae.epoch_kernel_fits(200, 40)
-    assert ae.epoch_smem_bytes(32, 15) == (47 * 48 + 94 + 224 + 75) * 4
+    the KKT's packed triangle fits a block's shared memory (K up to 340),
+    and the LU epoch above that."""
+    assert ae.epoch_kernel_fits(32, 15) and ae.epoch_kernel_fits(200, 140)
+    assert not ae.epoch_kernel_fits(200, 141)
+    assert ae.epoch_smem_bytes(32, 15) == 4 * (47 * 48 // 2) * 4
     calls = []
     real = tbox.admm_epoch_batched
     monkeypatch.setattr(tbox, "admm_epoch_batched",
@@ -226,7 +227,7 @@ def test_epoch_dispatch_by_shape(monkeypatch):
     rng = np.random.default_rng(8)
     settings = dataclasses.replace(ht.spline_settings(), max_epochs=1,
                                    polish=False, equil_iters=0)
-    for n, m in ((12, 5), (230, 10)):
+    for n, m in ((12, 5), (335, 10)):
         G = rng.normal(size=(n, n))
         qp = JQPData(H=G @ G.T / n + np.eye(n), h=rng.normal(size=n),
                      A=rng.normal(size=(m, n)), al=-np.ones(m),

@@ -139,17 +139,23 @@ def test_bbt_solve_kernel_matches_plain_and_dense(border, dev):
     assert res.abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("K", [8, 132, 200])
-def test_ldlt_kernels_match_plain(K, dev):
-    rng = np.random.default_rng(K)
-    A = rng.normal(size=(64, K, K))
+def _diag_dominant(B, K, seed):
+    """Symmetric indefinite, diagonally dominant (half the diagonal
+    negative) float64 matrices and right-hand sides, numpy."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(B, K, K))
     A = A + A.transpose(0, 2, 1)
     sign = np.where(np.arange(K) < K // 2, 1.0, -1.0)
     A[:, np.arange(K), np.arange(K)] = sign * (np.abs(A).sum(axis=2) + 1.0)
+    return A, rng.normal(size=(B, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [8, 132, 200])
+def test_ldlt_kernels_match_plain(K, dev):
+    A, b = _diag_dominant(64, K, K)
     M = torch.as_tensor(A, dtype=torch.float32, device=dev)
-    b = torch.as_tensor(rng.normal(size=(64, K)), dtype=torch.float32,
-                        device=dev)
+    b = torch.as_tensor(b, dtype=torch.float32, device=dev)
     _build.reset_launches()
     xk, Fk, dk = ldlt.ldlt_factor_solve(M, b)
     xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M, b)
@@ -210,11 +216,7 @@ def test_admm_epoch_kernel_matches_plain(n, m, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", [8, 47, 165])
 def test_ldlt_factor_kernel_matches_plain(K, dev):
-    rng = np.random.default_rng(K + 1)
-    A = rng.normal(size=(64, K, K))
-    A = A + A.transpose(0, 2, 1)
-    sign = np.where(np.arange(K) < K // 2, 1.0, -1.0)
-    A[:, np.arange(K), np.arange(K)] = sign * (np.abs(A).sum(axis=2) + 1.0)
+    A, _ = _diag_dominant(64, K, K + 1)
     M = torch.as_tensor(A, dtype=torch.float32, device=dev)
     _build.reset_launches()
     Fk, dk = ldlt.ldlt_factor(M)
@@ -225,6 +227,101 @@ def test_ldlt_factor_kernel_matches_plain(K, dev):
     torch.testing.assert_close(Fk[:, upper], Fp[:, upper], rtol=1e-4,
                                atol=1e-5)
     torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [47, 132, 165])
+def test_ldlt_factor_kernel_is_the_plain_factor(K, dev):
+    """The packed factor's upper triangle (diagonal d included) and d equal
+    the plain version's bit for bit; the strict lower triangle is zero; the
+    same factor comes out of ldlt_factor_solve."""
+    A, b = _diag_dominant(64, K, K + 2)
+    M = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    bb = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    Fk, dk = ldlt.ldlt_factor(M)
+    _, Fs, ds = ldlt.ldlt_factor_solve(M, bb)
+    Fp, dp = ldlt.ldlt_factor_plain(M)
+    upper = torch.triu(torch.ones(K, K, dtype=torch.bool, device=dev))
+    for F, d in ((Fk, dk), (Fs, ds)):
+        assert torch.equal(F[:, upper], Fp[:, upper])
+        assert torch.equal(d, dp)
+        assert torch.count_nonzero(F[:, ~upper]).item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [132, 165])
+def test_ldlt_solve_kernel_matches_panel_mirror(K, dev):
+    A, b = _diag_dominant(64, K, K + 3)
+    M = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    bb = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    F, d = ldlt.ldlt_factor_plain(M)
+    want = ldlt.panel_solve_mirror(F, d, bb)
+    for got in (ldlt.ldlt_solve(F, d, bb), ldlt.ldlt_factor_solve(M, bb)[0]):
+        assert _lane_rel(got, want) <= 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [200, ldlt.LDLT_MAX_K])
+def test_ldlt_kernels_up_to_the_fit_limit(K, dev):
+    A, b = _diag_dominant(8, K, K)
+    M = torch.as_tensor(A, dtype=torch.float32, device=dev)
+    bb = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    xk, Fk, dk = ldlt.ldlt_factor_solve(M, bb)
+    xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M, bb)
+    upper = torch.triu(torch.ones(K, K, dtype=torch.bool, device=dev))
+    assert torch.equal(Fk[:, upper], Fp[:, upper])
+    assert _lane_rel(xk, xp) <= 1e-4
+    assert _lane_rel(ldlt.ldlt_solve(Fp, dp, bb), xp) <= 1e-4
+    big = ldlt.LDLT_MAX_K + 1
+    with pytest.raises(ValueError, match=f"K={big}"):
+        ldlt.ldlt_factor(torch.eye(big, device=dev)[None])
+
+
+@pytest.mark.cuda
+def test_ldlt_shared_memory_sets_the_occupancy(dev):
+    """The C and Python shared-memory formulas agree, and at the main
+    paths' K (132, 165) the occupancy API's blocks per SM are those of the
+    shared-memory formula (six and four), for all three kernels."""
+    lib = _build.library()
+    for K in (8, 132, 165, ldlt.LDLT_MAX_K):
+        assert lib.pt_ldlt_smem_bytes(K) == ldlt.ldlt_smem_bytes(K)
+    for K, want in ((132, 6), (165, 4)):
+        assert _build.blocks_per_sm(ldlt.ldlt_smem_bytes(K), 256) == want
+        for which in range(3):
+            assert lib.pt_ldlt_blocks_per_sm(which, K) == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 67])
+@pytest.mark.parametrize("n,m", [(32, 15), (40, 24), (40, 25), (150, 25),
+                                 (300, 40)],
+                         ids=["K47", "K64", "K65", "K175", "K340"])
+def test_admm_epoch_kernel_batch_and_shape_edges(n, m, B, dev):
+    """A batch of one and a batch that leaves the last block of four
+    instances short; K = 64 and 65 (two and three register slots a lane),
+    K = 175 (three instances a block) and K = 340 (the fit limit, one)."""
+    args = _dense_epoch_case(n, m, B, dev, seed=B + n + m)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, iters=25)
+    got = admm_epoch.admm_epoch_batched(*args, **kw)
+    want = admm_epoch.admm_epoch_plain(*args, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    lib = _build.library()
+    t = admm_epoch.epoch_threads(n + m)
+    assert lib.pt_admm_epoch_smem_bytes(n, m, t) == \
+        admm_epoch.epoch_smem_bytes(n, m, t)
+    assert lib.pt_admm_epoch_blocks_per_sm(n, m, t) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [32, 64, 96])
+def test_admm_epoch_kernel_any_instances_per_block(threads, dev):
+    args = _dense_epoch_case(32, 15, 10, dev, seed=threads)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, iters=25)
+    got = admm_epoch.admm_epoch_batched(*args, threads=threads, **kw)
+    want = admm_epoch.admm_epoch_batched(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
