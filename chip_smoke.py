@@ -21,7 +21,10 @@ Phases, each printing its own lines and raising on failure:
      the kite's and the race car's shapes, the dense epoch at one, two and
      four instances (warps) a block; each LDL^T kernel's and the dense
      epoch's launch (block size, shared memory, blocks an SM by the
-     occupancy API and by the shared memory alone);
+     occupancy API and by the shared memory alone); at the CSTR batch's
+     shape the BBT epoch on its first epoch, and the epoch's fit rule in
+     Python (bbt_kernel_fits) against the kernel's own on seven
+     structures;
   4. main paths, each with the launch counts set to 0 just before it and
      read just after:
        kite: bench.py's certified kite batch (B=512), one warm-up then the
@@ -39,6 +42,15 @@ Phases, each printing its own lines and raising on failure:
        then, outside the counts, the same batch through the "lu" route;
        each route against the JAX package's record of the same route
        (tests/data/dist_kite_s8_jax_cpu.npz);
+       cstr_b256: the CSTR batch of BASELINE config 3
+       (polympc_torch/cstr_point.py: B=256, fp32 SQP through the BBT epoch,
+       fp64 certify) after a B=8 warm-up, against the JAX package's record
+       of its "lu" route (tests/data/cstr_b256_jax_cpu.npz); then, outside
+       the counts, its first 64 lanes through the port's "lu" route; after
+       the path, the LDL^T kernels on its certify matrices (K=110);
+       mpc: the MPC facade in float64 (no kernel): the robot quick start
+       with default settings and its warm re-solve, the CSTR with
+       block-BFGS, and the closed loop of examples/cstr_nmpc.py;
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -55,6 +67,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 REFERENCE = os.path.join(ROOT, "tests", "data", "kite_b512_jax_cpu.npz")
 HEADLINE_REFERENCE = os.path.join(ROOT, "tests", "data",
                                   "headline_jax_cpu.npz")
+CSTR_REFERENCE = os.path.join(ROOT, "tests", "data",
+                              "cstr_b256_jax_cpu.npz")
 DIST_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "dist_kite_s8_jax_cpu.npz")
 
@@ -111,6 +125,16 @@ LDLT_GROWTH = 1e-3
 CERTIFY_SLACK = 10
 # The dist path (B=128) may certify at most 3 lanes (2% of B) fewer.
 DIST_SLACK = 3
+# the CSTR batch (B=256): SOLVED and certified counts at least the record's
+# less 2% of B; on the lanes SOLVED in both, the median relative cost
+# difference within CSTR_COST_RTOL.  Not every such lane: in float32 about
+# a quarter of the lanes stop SOLVED 20-30% above the optimum (certify
+# residual 1e6-1e9) in either package and through either KKT route, and
+# which lanes do is chaotic (the JAX package's own "lu" and "pallas"
+# routes part so on lane 7 of 8 at B=8; PERF.md §6)
+CSTR_SLACK = 5
+CSTR_COST_RTOL = 1e-3
+CSTR_LU_LANES = 64
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -597,12 +621,24 @@ def epoch_launch(ae, n, m):
     return out
 
 
+def ldlt_designed_blocks(K):
+    """Blocks an SM the LDL^T kernels' launch bounds are built for at K
+    (``min_blocks`` in csrc/ldlt.cu, by 32-row register chunks): six up to
+    K=160 (40 registers a thread at 256 threads), four up to 192, two
+    above."""
+    tc = -(-K // 32)
+    return 6 if tc <= 5 else 4 if tc == 6 else 2
+
+
 def ldlt_launch(which, K):
     """An LDL^T kernel's launch at K (which: 0 ldlt_factor, 1
     ldlt_factor_solve, 2 ldlt_solve): 256 threads, the shared memory and
     blocks an SM by the occupancy API; raises if the kernel's and the
     wrapper's shared memory disagree, or if the occupancy API holds fewer
-    blocks than the shared memory does (registers would then limit it)."""
+    blocks than both the shared memory and the launch bounds' design
+    (:func:`ldlt_designed_blocks`) do: registers would then limit it
+    below what the kernels are built for.  (At K=110 the shared memory
+    alone would hold eight blocks; the launch bounds hold six.)"""
     from polympc_torch.ops import _build
     from polympc_torch.ops import ldlt
     smem = ldlt.ldlt_smem_bytes(K)
@@ -612,12 +648,16 @@ def ldlt_launch(which, K):
                            "kernel's shared memory disagree")
     out = {"threads": ldlt._THREADS, "smem_bytes": smem,
            "blocks_per_sm": lib.pt_ldlt_blocks_per_sm(which, K),
-           "blocks_per_sm_by_smem": _build.blocks_per_sm(smem, ldlt._THREADS)}
+           "blocks_per_sm_by_smem": _build.blocks_per_sm(smem,
+                                                         ldlt._THREADS),
+           "blocks_per_sm_by_design": ldlt_designed_blocks(K)}
     say("launch", f"{('ldlt_factor', 'ldlt_factor_solve', 'ldlt_solve')[which]}"
                   f" K={K}: {out}")
-    if out["blocks_per_sm"] < out["blocks_per_sm_by_smem"]:
+    if out["blocks_per_sm"] < min(out["blocks_per_sm_by_smem"],
+                                  out["blocks_per_sm_by_design"]):
         raise RuntimeError(f"ldlt at K={K}: the occupancy API holds fewer "
-                           "blocks an SM than the shared memory does")
+                           "blocks an SM than the shared memory and the "
+                           "launch bounds do")
     return out
 
 
@@ -678,6 +718,146 @@ def phase_parity_dense(dev, results):
         say("parity", f"ldlt_factor random diagonally dominant B=512 K={K}: "
                       f"F's upper triangle and d rel {rel:.2e} (tol "
                       f"{LDLT_RTOL})")
+
+
+def cstr_first_epoch(x0s, dev):
+    """The CSTR batch's first boxADMM epoch as the path runs it: the first
+    SQP iterate (the transcription's guess with each lane's x0 pinned,
+    zero multipliers), its QP Ruiz-equilibrated as ``box_admm_solve``
+    does, x = z = q = y = yb = 0; returns (settings.qp, epoch inputs)."""
+    import torch
+    from polympc_torch import cstr_point as cp
+    from polympc_torch.nlp.hessian import regularize
+    from polympc_torch.ops import bbt_kernel as bk
+    from polympc_torch.parallel import pin_initial_state
+    from polympc_torch.qp.box_admm import _build_kkt, penalties
+    from polympc_torch.qp.ruiz import ruiz_equilibrate
+    from polympc_torch.qp.types import QPData
+    tr, bounds, prm, settings = cp.cstr_problem(dev)
+    nlp, nx = tr.nlp, tr.ocp.nx
+    x0 = torch.as_tensor(x0s, dtype=torch.float32, device=dev)
+    B = x0.shape[0]
+    bnd, x0sc = pin_initial_state(tr, bounds, x0)
+    z = tr.initial_guess(dtype=torch.float32, device=dev)[None].repeat(B, 1)
+    z[:, :nx] = x0sc
+    z = torch.clamp(z, min=bnd.lbx, max=bnd.ubx)
+    lam = torch.zeros((B, nlp.m), device=dev)
+    c = nlp.eq(z, prm)
+    qp = QPData(H=regularize(nlp.lag_hessian(z, lam, prm), settings.reg,
+                             settings.reg_eps),
+                h=nlp.cost_grad(z, prm), A=nlp.eq_jac(z, prm), al=-c, au=-c,
+                xl=bnd.lbx - z, xu=bnd.ubx - z)
+    qs = settings.qp
+    qp, _ = ruiz_equilibrate(qp, qs.equil_iters)
+    rho, rb = penalties(torch.full((B,), qs.rho, device=dev), qp, qs)
+    kkt = _build_kkt(qp, rho, rb, qs.sigma)
+    zeros = torch.zeros_like
+    return qs, bk.prepare_epoch(kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho,
+                                rb, zeros(z), zeros(c), zeros(z), lam,
+                                zeros(z), qs.structure)
+
+
+def check_bbt_fit_rule():
+    """The BBT epoch's fit rule in Python (``bbt_kernel.bbt_kernel_fits``,
+    ``epoch_smem_bytes``) against the kernel's own (its shared-memory
+    count, and the blocks an SM the occupancy API places at 128 and 256
+    threads) on the main paths' structures and on three at the rule's
+    edges; raises where they disagree."""
+    from polympc_torch.headline import kite_problem
+    from polympc_torch.ops import _build
+    from polympc_torch.ops import bbt_kernel as bk
+    from polympc_torch.ops.structure import bbt_structure
+    lib = _build.library()
+    cases = {"kite": kite_problem("cpu")[3].qp.structure,
+             "bordered": bbt_structure(11, 5, 2, 0, 2, 0, 5, 2),
+             "race_car": bbt_structure(11, 6, 3, 0, 0, 0, 5, 2),
+             "cstr": bbt_structure(11, 4, 2, 0, 0, 0, 5, 2),
+             "S=1 k=192": bbt_structure(6, 15, 2, 0, 0, 0, 5, 1),
+             "S=1 k=200": bbt_structure(7, 13, 2, 0, 0, 0, 6, 1),
+             "S=2 k=168": bbt_structure(11, 12, 3, 0, 0, 0, 5, 2)}
+    out = {}
+    for name, st in cases.items():
+        key = (st.S, st.k, st.nx, st.a)
+        smem = bk.epoch_smem_bytes(st)
+        if lib.pt_bbt_epoch_smem_bytes(*key) != smem:
+            raise RuntimeError(f"bbt_epoch ({name}): the wrapper's shared "
+                               "memory count and the kernel's disagree")
+        blocks = {t: lib.pt_bbt_epoch_blocks_per_sm(*key, t)
+                  for t in bk._THREADS}
+        fits = bk.bbt_kernel_fits(st)
+        if fits != any(blocks.values()) or \
+                bk._fitting_threads(st) != [t for t in bk._THREADS
+                                            if blocks[t]]:
+            raise RuntimeError(f"bbt_epoch ({name}): bbt_kernel_fits says "
+                               f"{fits}, the kernel places {blocks} blocks "
+                               "an SM at 128/256 threads")
+        out[name] = {"S": st.S, "k": st.k, "smem_bytes": smem,
+                     "blocks_per_sm": blocks, "fits": fits}
+    say("launch", f"bbt_epoch fit rule (Python = kernel): {out}")
+    return out
+
+
+def phase_parity_cstr(crec, dev, results):
+    """The BBT epoch at the CSTR batch's shape (B=256, S=2 blocks of k=64,
+    25 iterations): on the path's own first epoch by the F64 rule, on
+    random quasi-definite KKTs in its pattern against the plain version
+    and the mirror; and the fit rule's Python formulas against the
+    kernel's."""
+    from polympc_torch.ops import bbt_kernel as bk
+    rng = np.random.default_rng(19)
+    fit = check_bbt_fit_rule()
+    qs, epoch = cstr_first_epoch(crec["x0s"], dev)
+    st = qs.structure
+    B = epoch[0].shape[0]
+    ep = (qs.sigma, qs.alpha, qs.check_every)
+    err = check_against_f64("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
+                            epoch, (st, *ep))
+    case = random_epoch(st, B, rng, dev)
+    rel = check_tight("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain, case,
+                      (st, *ep), EPOCH_RTOL)
+    relm = check_tight("bbt_epoch (mirror)", bk.bbt_epoch,
+                       bk.bbt_epoch_mirror, case, (st, *ep), MIRROR_RTOL)
+    say("parity", f"bbt_epoch random quasi-definite CSTR S={st.S} k={st.k}: "
+                  f"rel {rel:.2e} (tol {EPOCH_RTOL}); against its mirror "
+                  f"{relm:.2e} (tol {MIRROR_RTOL})")
+    results["bbt_epoch"]["cstr"] = {
+        **err, **timing(lambda: bk.bbt_epoch(*epoch, st, *ep),
+                        lambda: bk.bbt_epoch_plain(*epoch, st, *ep), None,
+                        bound_bbt_epoch(st, B, qs.check_every)),
+        **by_threads(bk, epoch, st, ep),
+        "random_rel_vs_plain": rel, "random_rel_vs_mirror": relm,
+        "fit_rule": fit,
+        "shape": f"B={B} S={st.S} k={st.k} nx={st.nx} "
+                 f"iters={qs.check_every}"}
+    say("parity", f"bbt_epoch at the CSTR batch's first epoch: "
+                  f"{results['bbt_epoch']['cstr']}")
+
+
+def phase_parity_cstr_refine(crec, lanes, dev, results):
+    """The LDL^T kernels on the CSTR certify's Newton-KKT matrices (K=110)
+    at the path's fp32 solution, by the residual test (run after the
+    path, from its solution: the batch is not solved twice)."""
+    import torch
+    from polympc_torch import cstr_point as cp
+    from polympc_torch.nlp.refine import newton_system
+    from polympc_torch.parallel import pin_initial_state
+    tr, bounds, _, _ = cp.cstr_problem(dev)
+    x0 = torch.as_tensor(crec["x0s"], dtype=torch.float64, device=dev)
+    prm64 = tr.params(t0=0.0, tf=cp.TF, dtype=torch.float64, device=dev)
+    b64 = bounds._replace(**{f: getattr(bounds, f).double()
+                             for f in bounds._fields})
+    bnd64, _ = pin_initial_state(tr, b64, x0)
+    f32 = lambda k: torch.as_tensor(lanes[k], dtype=torch.float32,
+                                    device=dev)
+    Ms, rs = newton_system(tr.nlp, f32("x"), f32("lam"), bnd64, prm64,
+                           matrix_dtype=torch.float32)
+    M32, r32 = Ms.float().contiguous(), rs.float().contiguous()
+    B, K = r32.shape
+    out = refine_checks(Ms, M32, r32)
+    for name in ("ldlt_factor_solve", "ldlt_solve", "ldlt_factor"):
+        results[name]["cstr"] = {**out[name], "shape": f"B={B} K={K}"}
+        say("parity", f"{name} at the CSTR certify's refine matrices B={B} "
+                      f"K={K}: {out[name]}")
 
 
 def race_car_inputs(dev):
@@ -1163,6 +1343,208 @@ def phase_dist(drec, card, dev):
     return extra, launches
 
 
+def phase_cstr(crec, card, dev):
+    """The CSTR batch (B=256) after a B=8 warm-up, held against the JAX
+    package's record; then, outside the counts, its first CSTR_LU_LANES
+    lanes through the "lu" route (the route the record holds)."""
+    from polympc_torch import cstr_point as cp
+    B = crec["x0s"].shape[0]
+    (extra, lanes), launches = run_path(
+        "cstr_b256", lambda: cp.run(B, dev, x0s=crec["x0s"], warmup=8),
+        ("bbt_epoch", "ldlt_factor_solve", "ldlt_solve"))
+    extra["certified_solves_per_s"] = extra["certified"] / \
+        extra["wall_s_per_batch"]
+    extra["solves_per_s"] = extra["status_solved"] / extra["solve_s"]
+    say("cstr_b256", f"{card}: {extra}")
+    compare_cstr(crec, lanes, "kernel route")
+    # the first CSTR_LU_LANES lanes only: the LU epoch's batched factors
+    # took 191 s at B=256 on the card, the batch's largest share of this
+    # script's time
+    n = CSTR_LU_LANES
+    _, lu = cp.run(n, dev, x0s=crec["x0s"][:n], kkt_solver="lu", warmup=0)
+    say("cstr_b256", f"lu route on lanes 0-{n - 1} (outside the counts): "
+                     f"status solved {int((lu['status'] == 1).sum())} "
+                     f"(kernel route {int((lanes['status'][:n] == 1).sum())}"
+                     f", record {int((crec['status'][:n] == 1).sum())}), "
+                     f"certified {int(lu['certified'].sum())}, mean iters "
+                     f"{lu['iters'].mean():.4f}; lanes whose status differs "
+                     f"from the kernel route "
+                     f"{int((lu['status'] != lanes['status'][:n]).sum())}, "
+                     f"from the record "
+                     f"{int((lu['status'] != crec['status'][:n]).sum())}")
+    return extra, lanes, launches
+
+
+def compare_cstr(crec, lanes, tag):
+    """The gates of the CSTR batch against the JAX record: SOLVED and
+    certified counts at least the record's less CSTR_SLACK; on the lanes
+    SOLVED in both, the median relative cost difference within
+    CSTR_COST_RTOL (see there)."""
+    res = lanes["residual"]
+    if res.shape != crec["residual"].shape or \
+            not np.isfinite(lanes["cost"]).all():
+        raise RuntimeError(f"cstr path ({tag}): results of the wrong shape "
+                           "or non-finite costs")
+    mine, theirs = lanes["status"] == 1, crec["status"] == 1
+    both = mine & theirs
+    rel = np.abs(lanes["cost"][both] - crec["cost"][both]) / \
+        np.abs(crec["cost"][both])
+    # SOLVED short of the optimum: a certify residual far above the ~1e2
+    # of the lanes that reach it
+    short = lambda a: int(((a["status"] == 1) & (a["residual"] > 1e5)).sum())
+    say("cstr_b256", f"{tag}: status solved {int(mine.sum())} (record "
+                     f"{int(theirs.sum())}, route {crec['route']}), "
+                     f"certified {int(lanes['certified'].sum())} (record "
+                     f"{int(crec['certified'].sum())}); SOLVED in both "
+                     f"{int(both.sum())}, port only "
+                     f"{np.nonzero(mine & ~theirs)[0].tolist()}, record "
+                     f"only {np.nonzero(~mine & theirs)[0].tolist()}; mean "
+                     f"iters {lanes['iters'].mean():.4f} (record "
+                     f"{crec['iters'].mean():.4f}); cost on common lanes: "
+                     f"median relative difference {np.median(rel):.3e}, "
+                     f"largest {rel.max():.3e}, above {CSTR_COST_RTOL} on "
+                     f"{int((rel > CSTR_COST_RTOL).sum())}; SOLVED with a "
+                     f"certify residual above 1e5 {short(lanes)} (record "
+                     f"{short(crec)}); certify residual median "
+                     f"{np.median(res):.3e} (record "
+                     f"{np.median(crec['residual']):.3e})")
+    for what, got, want in (
+            ("SOLVED", int(mine.sum()), int(theirs.sum())),
+            ("certified", int(lanes["certified"].sum()),
+             int(crec["certified"].sum()))):
+        if got < want - CSTR_SLACK:
+            raise RuntimeError(f"cstr path ({tag}): {what} {got}, fewer "
+                               f"than the record's {want} - {CSTR_SLACK}")
+    if not np.median(rel) <= CSTR_COST_RTOL:
+        raise RuntimeError(f"cstr path ({tag}): the median relative cost "
+                           f"difference on lanes SOLVED in both is "
+                           f"{np.median(rel):.3e} (tol {CSTR_COST_RTOL})")
+
+
+def mpc_path(dev):
+    """The MPC facade on the card in float64 (no kernel: the kernels take
+    float32): the robot quick start with default SQPSettings() (dense
+    BFGS) and its warm re-solve, the CSTR with block-BFGS at the
+    reference's optimum, and examples/cstr_nmpc.py's closed loop (12
+    steps, RK4 plant): every step SOLVED or stopped at max_iter at the
+    primal optimum, and the error falling every step."""
+    import time
+    import torch
+    from polympc_torch.basis import Chebyshev, SegmentedBasis
+    from polympc_torch.control import MPC
+    from polympc_torch.models import (
+        CSTR_ULB, CSTR_US, CSTR_UUB, CSTR_X0, CSTR_XS, cstr_ocp, robot_ocp)
+    from polympc_torch.nlp import SQPSettings
+    from polympc_torch.ocp import rk4_integrate
+    from polympc_torch.qp.types import ADMMSettings
+    from polympc_torch.utils import status as st
+    mesh = lambda: SegmentedBasis(Chebyshev(5), 2)
+    out = {}
+
+    def timed(mpc):
+        t0 = time.perf_counter()
+        sol = mpc.solve()
+        sync()
+        return sol, time.perf_counter() - t0
+
+    mpc = MPC(robot_ocp(), mesh(), t0=0.0, tf=2.0, settings=SQPSettings(),
+              device=dev)
+    mpc.set_static_parameters([2.0])
+    mpc.control_bounds([-1.5, -0.75], [1.5, 0.75])
+    mpc.initial_conditions([0.5, 0.5, 0.5])
+    cold, t_cold = timed(mpc)
+    mpc.initial_conditions([0.52, 0.48, 0.5])
+    warm, t_warm = timed(mpc)
+    out["robot_bfgs"] = {"cold_iters": int(cold.iters),
+                         "warm_iters": int(warm.iters),
+                         "cold_s": t_cold, "warm_s": t_warm}
+    if int(cold.status) != st.SOLVED or int(warm.status) != st.SOLVED or \
+            int(warm.iters) > int(cold.iters):
+        raise RuntimeError(f"mpc path: robot quick start {out['robot_bfgs']}"
+                           f", statuses {int(cold.status)}/"
+                           f"{int(warm.status)}")
+
+    def cstr_mpc(hessian, max_iter):
+        m = MPC(cstr_ocp(), mesh(), t0=0.0, tf=100.0,
+                settings=SQPSettings(
+                    hessian=hessian, max_iter=max_iter,
+                    qp=ADMMSettings(rho=1.0, eps_abs=1e-5, eps_rel=1e-5,
+                                    max_epochs=40, equil_iters=4)),
+                x_scale=[2.0, 1.0, 100.0, 100.0], u_scale=[15.0, 2000.0],
+                device=dev)
+        m.control_bounds(CSTR_ULB, CSTR_UUB)
+        m.state_bounds([0.0, 0.0, 50.0, 50.0], [6.0, 4.0, 150.0, 150.0])
+        return m
+
+    m = cstr_mpc("block_bfgs", 150)
+    m.initial_conditions(CSTR_X0)
+    m.x_guess(CSTR_X0)
+    m.u_guess([14.19, -1113.5])
+    sol, t_bb = timed(m)
+    out["cstr_block_bfgs"] = {"status": int(sol.status),
+                              "iters": int(sol.iters),
+                              "cost": float(sol.cost), "s": t_bb}
+    if int(sol.status) != st.SOLVED or \
+            abs(float(sol.cost) - 12262.6) > 1e-3 * 12262.6:
+        raise RuntimeError(f"mpc path: CSTR block-BFGS "
+                           f"{out['cstr_block_bfgs']}, the reference's "
+                           "optimum is 12262.6 (rtol 1e-3)")
+
+    m = cstr_mpc("exact", 100)
+    ocp = m.ocp
+    x = torch.as_tensor(CSTR_X0, dtype=torch.float64, device=dev)
+    xs = torch.as_tensor(CSTR_XS, dtype=torch.float64, device=dev)
+    none = torch.zeros(0, dtype=torch.float64, device=dev)
+    prev = float(torch.linalg.vector_norm(x - xs))
+    lat, iters, stalled = [], [], []
+    qs = m.settings
+    for k in range(12):
+        m.initial_conditions(x)
+        if k == 0:
+            m.x_guess(x)
+            m.u_guess(CSTR_US)
+        sol, t = timed(m)
+        lat.append(t)
+        iters.append(int(sol.iters))
+        # a step that stops at max_iter with its primal step and violation
+        # inside the SQP's tolerances sits at the optimum while its duals
+        # creep at the smallest trial step (the merit line search rejects
+        # full steps on rounding noise there; ROADMAP queue 3): counted,
+        # not failed
+        primal_done = float(sol.primal_step) <= qs.eps_prim and \
+            float(sol.violation) <= qs.eps_viol
+        if int(sol.status) != st.SOLVED:
+            if not primal_done:
+                raise RuntimeError(f"mpc path: closed-loop step {k} status "
+                                   f"{int(sol.status)}, primal step "
+                                   f"{float(sol.primal_step):.3e}, "
+                                   f"violation {float(sol.violation):.3e}")
+            stalled.append(k)
+        u = m.solution_u()[0]
+        x = rk4_integrate(lambda xx, uu, tt: ocp.dynamics(xx, u, none,
+                                                          none, tt),
+                          x, 0.0, 10.0, 20)[-1]
+        err = float(torch.linalg.vector_norm(x - xs))
+        if not err < prev:
+            raise RuntimeError(f"mpc path: closed-loop error rose at step "
+                               f"{k}: {prev:.4f} -> {err:.4f}")
+        prev = err
+    out["cstr_closed_loop"] = {
+        "steps": 12, "iters": iters, "final_error": prev,
+        "solved_steps": 12 - len(stalled),
+        "max_iter_at_the_primal_optimum": stalled,
+        "latency_ms_mean": 1e3 * float(np.mean(lat)),
+        "latency_ms_max": 1e3 * float(np.max(lat))}
+    return out
+
+
+def phase_mpc(card, dev):
+    out, launches = run_path("mpc", lambda: mpc_path(dev), ())
+    say("mpc", f"{card}, float64, no kernel on this path (the kernels take "
+               f"float32): {out}")
+    return out, launches
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -1188,19 +1570,24 @@ def main():
     ref = dict(np.load(REFERENCE))
     rec = dict(np.load(HEADLINE_REFERENCE))
     drec = dict(np.load(DIST_REFERENCE))
+    crec = dict(np.load(CSTR_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
     phase_parity_race_car("cuda", parity)
     phase_parity_dist(drec, "cuda", parity)
+    phase_parity_cstr(crec, "cuda", parity)
     paths = {"kite": phase_kite(ref, smi, "cuda"),
              "spline_qp": phase_spline(rec, smi, "cuda")[1],
              "frame_transform": phase_frame(rec, smi, "cuda")[1],
              "race_car": phase_race_car(rec, smi, "cuda")[1],
              "dist_kite_s8": phase_dist(drec, smi, "cuda")[1]}
+    _, cstr_lanes, paths["cstr_b256"] = phase_cstr(crec, smi, "cuda")
+    phase_parity_cstr_refine(crec, cstr_lanes, "cuda", parity)
+    paths["mpc"] = phase_mpc(smi, "cuda")[1]
     kernels = []
     for n, src, rep in KERNELS:
-        by_path = {p: c[n] for p, c in paths.items() if c[n]}
+        by_path = {p: c[n] for p, c in paths.items()}
         kernels.append({"name": n, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **parity[n]})

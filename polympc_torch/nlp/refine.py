@@ -18,7 +18,7 @@ import torch
 
 from polympc_torch.nlp.sqp import _constraints, derivative_fns
 from polympc_torch.nlp.types import NLP, NLPBounds
-from polympc_torch.ops.ldlt import ldlt_factor_solve, ldlt_solve
+from polympc_torch.ops.ldlt import LDLT_MAX_K, ldlt_factor_solve, ldlt_solve
 from polympc_torch.utils.precision import full_precision
 
 __all__ = ["kkt_residual", "refine_solution", "newton_system",
@@ -102,10 +102,12 @@ def kkt_residual(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p=None
 
 
 def _newton_kkt_solve(M, r, ir: int = 2):
-    """Batched symmetric Newton-KKT solve.  float32: unpivoted LDL^T factor
-    + ``ir`` iterative-refinement sweeps against the same matrix (residual
-    at full float32); float64: ``torch.linalg.solve``."""
-    if M.dtype != torch.float32:
+    """Batched symmetric Newton-KKT solve.  float32 up to K =
+    ``LDLT_MAX_K``: unpivoted LDL^T factor + ``ir`` iterative-refinement
+    sweeps against the same matrix (residual at full float32); float64, or
+    a larger K (the JAX package's ``pallas_fits`` rule, decided by the
+    shape): ``torch.linalg.solve``."""
+    if M.dtype != torch.float32 or M.shape[-1] > LDLT_MAX_K:
         return torch.linalg.solve(M, r)
     x, F, d = ldlt_factor_solve(M, r)
     for _ in range(ir):

@@ -1,28 +1,34 @@
-"""SQP solver with l1-merit line search, batch-first — the port of
-``sqp_solve`` in polympc_tpu/nlp/sqp.py.
+"""SQP solver with l1-merit or filter line search, batch-first — the port
+of ``sqp_solve`` in polympc_tpu/nlp/sqp.py.
 
 Every lane solves its own NLP from its own start point.  One iteration:
-exact (or Gauss-Newton) Lagrangian Hessian, regularised (nlp/hessian.py);
-the QP subproblem in the step with bounds shifted by the iterate, solved by
-boxADMM dual-warm-started with the current multipliers; a fixed ladder of
-``ls_max_iter`` trial step lengths tau^i evaluated for every lane at once,
-of which the first that meets the l1-merit Armijo test is taken (with the
-JAX package's two-tier fallback); then one first-order evaluation at the
-new point serves the termination test and the next linearisation.
+the Lagrangian Hessian (exact, Gauss-Newton, or a quasi-Newton matrix
+carried per lane: dense damped BFGS, SR1, or the collocation NLP's
+block-BFGS), regularised (nlp/hessian.py); the QP subproblem in the step
+with bounds shifted by the iterate, solved by boxADMM dual-warm-started
+with the current multipliers; a fixed ladder of ``ls_max_iter`` trial step
+lengths tau^i evaluated for every lane at once, of which the first that
+meets the l1-merit Armijo test or the Fletcher-Leyffer filter is taken
+(with the JAX package's two-tier fallback); then one first-order
+evaluation at the new point serves the quasi-Newton secant, the
+termination test and the next linearisation.
 
 A lane stops once its termination test passes or after ``max_iter``
 iterations; the lanes still running are gathered into a smaller batch for
 the next iteration, so each lane stops at the iteration it would stop at
 alone (the JAX package freezes finished lanes under ``vmap`` instead).
-The quasi-Newton Hessians, the filter line search and the per-iteration
-trace are not in this slice.
+Per-lane state (quasi-Newton matrix, filter, trace) is gathered with the
+lanes.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import grad, jacrev, vmap
 
-from polympc_torch.nlp.hessian import regularize
+from polympc_torch.nlp.hessian import (
+    BlockHessian, assemble_block_hessian, bfgs_update, block_bfgs_update,
+    block_hessian_identity, regularize, sr1_update,
+)
 from polympc_torch.nlp.types import NLP, NLPBounds, SQPSettings, SQPSolution
 from polympc_torch.qp.box_admm import box_admm_solve
 from polympc_torch.qp.types import QPData
@@ -102,6 +108,9 @@ def _violation_inf(c, cl, cu, x, lbx, ubx):
     return torch.maximum(vc, vx)
 
 
+_QN_KEYS = tuple("H" + f for f in BlockHessian._fields)
+
+
 @full_precision()
 def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
               lam0=None, lam_box0=None,
@@ -114,16 +123,6 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
     """
     if not settings.validate():
         raise ValueError("invalid SQP settings")
-    if settings.hessian not in ("exact", "gauss_newton"):
-        raise NotImplementedError(
-            f"hessian={settings.hessian!r}: the quasi-Newton modes are "
-            "ported in slice 3")
-    if settings.line_search != "merit":
-        raise NotImplementedError("the filter line search is ported in "
-                                  "slice 3")
-    if settings.trace_iters:
-        raise NotImplementedError("the per-iteration trace is ported in "
-                                  "slice 3")
     B, n = x0.shape
     m = nlp.m
     dt, dev = x0.dtype, x0.device
@@ -141,10 +140,13 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
     cost_fn = lambda x: nlp.cost(x, p)
     con_fn = lambda x: _constraints(nlp, x, p)
     grad_fn, jac_fn = derivative_fns(nlp, p)
-    if settings.hessian == "gauss_newton":
+    mode = settings.hessian
+    if mode == "gauss_newton":
         if nlp.gn_hessian is None:
             raise ValueError("hessian='gauss_newton' requires nlp.gn_hessian")
         hess_fn = lambda x, lam: nlp.gn_hessian(x, p)
+    elif mode != "exact":
+        hess_fn = None  # the quasi-Newton modes carry their matrix per lane
     elif nlp.lag_hessian is not None:
         hess_fn = lambda x, lam: nlp.lag_hessian(x, lam, p)
     else:
@@ -154,15 +156,31 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
                 val = val + _constraints(nlp, xi[None], p)[0] @ li
             return val
         hess_fn = vmap(jacrev(grad(lagr)))
+    if mode == "block_bfgs":
+        if nlp.block_structure is None:
+            raise ValueError(
+                "hessian='block_bfgs' requires nlp.block_structure "
+                "(set by ocp.transcribe)")
+        bs_N, bs_nx, bs_nu, bs_np = nlp.block_structure
+    filt = settings.line_search == "filter"
+    T = settings.trace_iters
 
     L = settings.ls_max_iter
     alphas = settings.tau ** torch.arange(L, dtype=dt, device=dev)
+
+    def hessian(s, x, lam):
+        if mode == "block_bfgs":
+            return assemble_block_hessian(
+                BlockHessian(*(s[k] for k in _QN_KEYS)), bs_N, bs_nx, bs_nu)
+        if hess_fn is None:
+            return s["Bq"]
+        return hess_fn(x, lam)
 
     def body(s, cl, cu, lbx, ubx):
         x, lam, lam_box, g, c, A, f0 = (s[k] for k in (
             "x", "lam", "lam_box", "g", "c", "A", "f"))
         b = x.shape[0]
-        H = regularize(hess_fn(x, lam), settings.reg, settings.reg_eps)
+        H = regularize(hessian(s, x, lam), settings.reg, settings.reg_eps)
         qp = QPData(H=H, h=g, A=A, al=cl - c, au=cu - c, xl=lbx - x,
                     xu=ubx - x)
         qs = box_admm_solve(qp, y0=lam, y_box0=lam_box, settings=settings.qp)
@@ -187,17 +205,33 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         trial_f = torch.where(bad, inf, trial_f)
         trial_v = torch.where(bad, inf, trial_v)
 
-        mu = torch.clamp(settings.merit_mu_safety + torch.maximum(
-            _inf_norm(lam_qp), _inf_norm(lam_box_qp)),
-            max=settings.merit_mu_max)
-        phi0 = f0 + mu * v0
-        dphi = dphi_f - mu * v0
-        phis = trial_f + mu[:, None] * trial_v
-        ok = phis <= phi0[:, None] + settings.eta * alphas[None] * dphi[:, None]
+        if filt:
+            # Fletcher-Leyffer filter acceptance (line_search.hpp:16-98): a
+            # trial must improve cost or violation by the margins against
+            # every filter entry and the current point
+            gma, beta = settings.filter_gamma, settings.filter_beta
+            ff, fv = s["filt_f"][:, None, :], s["filt_v"][:, None, :]
+            ok_entries = ((trial_f[:, :, None] <= ff - gma * fv)
+                          | (trial_v[:, :, None] <= beta * fv)).all(2)
+            ok_current = ((trial_f <= (f0 - gma * v0)[:, None])
+                          | (trial_v <= (beta * v0)[:, None]))
+            ok = ok_entries & ok_current
+            improve = (trial_f < f0[:, None]) | (trial_v < v0[:, None])
+            score = trial_f + trial_v
+        else:
+            mu = torch.clamp(settings.merit_mu_safety + torch.maximum(
+                _inf_norm(lam_qp), _inf_norm(lam_box_qp)),
+                max=settings.merit_mu_max)
+            phi0 = f0 + mu * v0
+            dphi = dphi_f - mu * v0
+            score = trial_f + mu[:, None] * trial_v
+            ok = score <= (phi0[:, None] + settings.eta * alphas[None]
+                           * dphi[:, None])
+            improve = score < phi0[:, None]
         first = torch.argmax(ok.to(torch.int32), dim=1)
         finite = torch.isfinite(trial_f) & torch.isfinite(trial_v)
-        improve = (phis < phi0[:, None]) & finite
-        best = torch.argmin(torch.where(improve, phis, inf), dim=1)
+        improve = improve & finite
+        best = torch.argmin(torch.where(improve, score, inf), dim=1)
         smallest = L - 1 - torch.argmax(
             torch.flip(finite, [1]).to(torch.int32), dim=1)
         any_fin = finite.any(1)
@@ -206,6 +240,20 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
                                            torch.zeros_like(smallest)))
         sel = torch.where(ok.any(1), first, fallback)
         alpha = torch.where(any_fin, alphas[sel], torch.zeros_like(v0))
+        f_sel = trial_f.gather(1, sel[:, None])[:, 0]
+
+        new = {}
+        if filt:
+            # augment the filter with the departed point unless the step is
+            # a sufficient-cost-decrease (f-type) step; a ring buffer of
+            # filter_depth entries indexed by the lane's iteration
+            f_type = (dphi_f < 0) & (f_sel <= f0 + settings.eta * alpha
+                                     * dphi_f)
+            slot = torch.arange(settings.filter_depth, device=dev)[None] == \
+                torch.remainder(s["it"], settings.filter_depth)[:, None]
+            put = slot & ~f_type[:, None]
+            new["filt_f"] = torch.where(put, f0[:, None], s["filt_f"])
+            new["filt_v"] = torch.where(put, v0[:, None], s["filt_v"])
 
         x2 = x + alpha[:, None] * pstep
         lam2 = lam + alpha[:, None] * (lam_qp - lam) if m else lam
@@ -213,22 +261,44 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         g2 = grad_fn(x2)
         c2 = con_fn(x2)
         A2 = jac_fn(x2)
-        f2 = torch.where(any_fin, trial_f.gather(1, sel[:, None])[:, 0], f0)
+        f2 = torch.where(any_fin, f_sel, f0)
+        At = A2.transpose(1, 2)
+
+        if hess_fn is None:
+            s_vec = x2 - x
+            y_vec = (g2 + _mv(At, lam2)) - (g + _mv(A.transpose(1, 2), lam2)) \
+                if m else g2 - g
+            if mode == "block_bfgs":
+                Hb = block_bfgs_update(
+                    BlockHessian(*(s[k] for k in _QN_KEYS)), s_vec, y_vec,
+                    bs_N, bs_nx, bs_nu)
+                new.update(zip(_QN_KEYS, Hb))
+            else:
+                upd = bfgs_update if mode == "bfgs" else sr1_update
+                new["Bq"] = upd(s["Bq"], s_vec, y_vec)
 
         ps = _inf_norm(alpha[:, None] * pstep)
         ds = _inf_norm(alpha[:, None] * (lam_qp - lam))
         vi = _violation_inf(c2, cl, cu, x2, lbx, ubx)
-        stat = _inf_norm(g2 + _mv(A2.transpose(1, 2), lam2) + lam_box2)
+        stat = _inf_norm(g2 + _mv(At, lam2) + lam_box2)
         lam_scale = torch.clamp(torch.maximum(_inf_norm(lam2),
                                               _inf_norm(lam_box2)), min=1.0)
         conv = ((ps <= settings.eps_prim)
                 & (ds <= settings.eps_dual * lam_scale)
                 & (vi <= settings.eps_viol)
                 & (stat <= settings.eps_stat * lam_scale))
-        return {"x": x2, "lam": lam2, "lam_box": lam_box2,
-                "it": s["it"] + 1, "done": conv,
-                "qp_iters": s["qp_iters"] + qs.iters, "ps": ps, "ds": ds,
-                "vi": vi, "g": g2, "c": c2, "A": A2, "f": f2}
+        if T:
+            # the per-iteration record [cost, violation, primal step, dual
+            # step] at row it, for the first T iterations
+            row = torch.stack([f2, vi, ps, ds], dim=1).to(dt)
+            put = (torch.arange(T, device=dev)[None] == s["it"][:, None]
+                   )[:, :, None]
+            new["trace"] = torch.where(put, row[:, None, :], s["trace"])
+        new.update({"x": x2, "lam": lam2, "lam_box": lam_box2,
+                    "it": s["it"] + 1, "done": conv,
+                    "qp_iters": s["qp_iters"] + qs.iters, "ps": ps,
+                    "ds": ds, "vi": vi, "g": g2, "c": c2, "A": A2, "f": f2})
+        return new
 
     x0 = torch.clamp(x0.to(dt), min=lbx, max=ubx)
     inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
@@ -243,6 +313,20 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
          "ps": inf, "ds": inf.clone(), "vi": inf.clone(),
          "g": grad_fn(x0), "c": con_fn(x0), "A": jac_fn(x0),
          "f": cost_fn(x0)}
+    if mode == "block_bfgs":
+        S.update(zip(_QN_KEYS, block_hessian_identity(
+            bs_N, bs_nx, bs_nu, bs_np, B, dt, dev)))
+    elif hess_fn is None:
+        S["Bq"] = torch.eye(n, dtype=dt, device=dev).expand(B, n, n).clone()
+    if filt:
+        # empty filter entries (f = +inf, v = 0) accept everything
+        S["filt_f"] = torch.full((B, settings.filter_depth), float("inf"),
+                                 dtype=dt, device=dev)
+        S["filt_v"] = torch.zeros((B, settings.filter_depth), dtype=dt,
+                                  device=dev)
+    if T:
+        S["trace"] = torch.full((B, T, 4), float("nan"), dtype=dt,
+                                device=dev)
     while True:
         active = ~S["done"] & (S["it"] < settings.max_iter)
         idx = torch.nonzero(active).flatten()
@@ -259,4 +343,4 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
     return SQPSolution(x=S["x"], lam=S["lam"], lam_box=S["lam_box"],
                        status=status, iters=S["it"], qp_iters=S["qp_iters"],
                        cost=S["f"], primal_step=S["ps"], dual_step=S["ds"],
-                       violation=S["vi"])
+                       violation=S["vi"], trace=S.get("trace"))

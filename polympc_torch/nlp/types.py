@@ -63,9 +63,9 @@ class NLPBounds(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class SQPSettings:
     """SQP settings (defaults mirror sqp_base.hpp:24-47), the fields of the
-    JAX package's ``SQPSettings``.  This slice runs ``hessian`` "exact" or
-    "gauss_newton" with the l1-merit line search; the quasi-Newton modes and
-    the filter line search are ported in slice 3."""
+    JAX package's ``SQPSettings``.  ``trace_iters`` > 0 records (cost,
+    violation, primal step, dual step) for the first ``trace_iters``
+    iterations of each lane in ``SQPSolution.trace``."""
     max_iter: int = 100
     ls_max_iter: int = 10
     tau: float = 0.5
@@ -108,3 +108,7 @@ class SQPSolution(NamedTuple):
     primal_step: torch.Tensor  # (B,)
     dual_step: torch.Tensor    # (B,)
     violation: torch.Tensor    # (B,)
+    # (B, trace_iters, 4) per-iteration [cost, violation, primal_step,
+    # dual_step]; rows past a lane's final iteration hold NaN; None when
+    # trace_iters == 0
+    trace: Optional[torch.Tensor] = None

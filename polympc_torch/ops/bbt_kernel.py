@@ -37,7 +37,7 @@ from polympc_torch.ops.structure import (
 )
 
 __all__ = ["bbt_admm_epoch_batched", "bbt_solve_batched", "prepare_epoch",
-           "epoch_threads",
+           "bbt_kernel_fits", "epoch_smem_bytes", "epoch_threads",
            "bbt_epoch", "bbt_epoch_plain", "bbt_epoch_mirror", "bbt_solve",
            "bbt_solve_plain", "bbt_solve_mirror"]
 
@@ -49,22 +49,65 @@ _SOLVE_THREADS = 256
 _CHOSEN = {}
 
 
+def epoch_smem_bytes(st: CollocStructure) -> int:
+    """Bytes of dynamic shared memory one instance of the epoch kernel
+    takes: ``pt_bbt_epoch_smem_bytes`` in ``csrc/bbt_epoch.cu`` (the S
+    diagonal blocks and their inverses at row stride k+1, the couplings,
+    the border, the sweep's pivot rows and ten state vectors of length
+    L = S k + a), in Python, so the fit rule is known without the library
+    (``chip_smoke.py`` holds the two formulas equal)."""
+    S, k, nx, a = st.S, st.k, st.nx, st.a
+    Sk, L = S * k, S * k + a
+    piv_rows = (max(k, a) + 31) // 32 * 32
+    work = (Sk * (k + 1) + Sk * nx + k * nx + 2 * Sk * a + a * a
+            + max(a, nx) + k + 4 + 4 * piv_rows)
+    return 4 * (work + 10 * L)
+
+
+def _fitting_threads(st: CollocStructure):
+    """The block sizes of :data:`_THREADS` at which the epoch kernel is
+    built for the structure (the sweep's register tile holds blocks of
+    max(k, a) rows, ``_build.SWEEP_MAX_K``) and one block's shared memory
+    fits an SM."""
+    smem = epoch_smem_bytes(st)
+    return [t for t in _THREADS
+            if max(st.k, st.a) <= _build.SWEEP_MAX_K[t]
+            and smem <= _build.SMEM_LIMIT_BYTES
+            and _build.blocks_per_sm(smem, t) > 0]
+
+
+def bbt_kernel_fits(st: CollocStructure) -> bool:
+    """Whether the epoch kernel runs a structure's QPs: its blocks fit the
+    sweep's register tile at 128 or 256 threads and its working set fits a
+    block's shared memory.  Pure Python, decided before any launch; the
+    QP's epoch dispatch (``qp/box_admm.py:epoch_route``) takes the dense or
+    the LU epoch where it is false, as the JAX package does with its own
+    ``bbt_kernel_fits``."""
+    return bool(_fitting_threads(st))
+
+
 def epoch_threads(st: CollocStructure) -> int:
-    """Threads per block of the epoch kernel for a structure: of 128 and
-    256, the one with which an SM holds more instances at once, 256 on a
-    tie.  Each instance is bound by its own chain of barriers, and
-    independent instances on one SM hide each other's; on the card the
-    kite's shape (k=72: three instances per SM at 128 threads, two at 256,
-    by registers) ran faster at 128 and the race car's (k=96: two at
-    either, by shared memory) at 256 (``chip_smoke.py`` prints both)."""
+    """Threads per block of the epoch kernel for a structure: of the block
+    sizes that fit it (:func:`bbt_kernel_fits`; raises where none does),
+    the one with which an SM holds more instances at once, 256 on a tie.
+    Each instance is bound by its own chain of barriers, and independent
+    instances on one SM hide each other's; on the card the kite's shape
+    (k=72: three instances per SM at 128 threads, two at 256, by
+    registers) ran faster at 128 and the race car's (k=96: two at either,
+    by shared memory) at 256 (``chip_smoke.py`` prints both)."""
     key = (st.S, st.k, st.nx, st.a)
     if key not in _CHOSEN:
-        lib = _build.library()
-        fit = [(lib.pt_bbt_epoch_blocks_per_sm(*key, t), t) for t in _THREADS]
-        blocks, threads = max(fit)
-        if blocks == 0:
+        fits = _fitting_threads(st)
+        if not fits:
             raise ValueError(f"bbt_epoch: no block of {_THREADS} threads "
-                             f"fits {_shape_str(st)}")
+                             f"fits {_shape_str(st)} (bbt_kernel_fits)")
+        lib = _build.library()
+        blocks, threads = max((lib.pt_bbt_epoch_blocks_per_sm(*key, t), t)
+                              for t in fits)
+        if blocks == 0:
+            raise RuntimeError(f"bbt_epoch: the occupancy API places no "
+                               f"block at {_shape_str(st)}, which "
+                               "bbt_kernel_fits admits")
         _CHOSEN[key] = threads
     return _CHOSEN[key]
 
@@ -299,12 +342,7 @@ def bbt_epoch(Td, Oh, Ct, Dp, vin, st: CollocStructure, sigma: float,
     if tuple(vin.shape) != (B, 8, L):
         raise ValueError(f"bbt_epoch: vin of shape {tuple(vin.shape)}, "
                          f"expected {(B, 8, L)}")
-    _build.check_smem(
-        _build.library().pt_bbt_epoch_smem_bytes(st.S, st.k, st.nx, st.a),
-        f"bbt_epoch at {_shape_str(st)}")
     threads = epoch_threads(st)
-    _build.check_sweep(max(st.k, st.a), threads,
-                       f"bbt_epoch at {_shape_str(st)}")
     return _launch_epoch(Td, Oh, Ct, Dp, vin, st, sigma, alpha, iters,
                          threads)
 

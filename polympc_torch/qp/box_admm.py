@@ -15,12 +15,13 @@ certified infeasible, or after ``max_epochs``; lanes still running are
 gathered into a smaller batch for the next epoch, so every lane stops at
 the epoch it would stop at alone.
 
-Epochs run through ``kkt_solver``: "kernel" with a ``structure`` runs the
-fused BBT epoch (ops/bbt_kernel.py), "kernel" without one the fused dense
-LDL^T epoch (ops/admm_epoch.py) — each the CUDA kernel for CUDA float32,
-its plain version on the CPU — unless the KKT is too large for the dense
-kernel's shared memory, which the shape decides before any launch; "lu"
-and "inverse" (and such a large KKT) run the LU epoch.  ``equil_iters > 0``
+Epochs run through ``kkt_solver`` and the shapes, decided before any
+launch in the JAX package's order (:func:`epoch_route`): "kernel" runs the
+fused BBT epoch (ops/bbt_kernel.py) when a ``structure`` of this QP fits
+that kernel, else the fused dense LDL^T epoch (ops/admm_epoch.py) when the
+KKT fits that one — each the CUDA kernel for CUDA float32, its plain
+version on the CPU — else the LU epoch, which "lu" and "inverse" always
+run.  ``equil_iters > 0``
 solves the Ruiz-equilibrated problem (warm start scaled in, termination and
 rho on the scaled problem, solution scaled back); ``polish`` runs the
 active-set polish (OSQP section 5.5) on the solution.
@@ -30,7 +31,9 @@ from __future__ import annotations
 import torch
 
 from polympc_torch.ops.admm_epoch import admm_epoch_batched, epoch_kernel_fits
-from polympc_torch.ops.bbt_kernel import bbt_admm_epoch_batched
+from polympc_torch.ops.bbt_kernel import (
+    bbt_admm_epoch_batched, bbt_kernel_fits,
+)
 from polympc_torch.ops.structure import structure_is_consistent
 from polympc_torch.qp.ruiz import ruiz_equilibrate, unscale_solution
 from polympc_torch.qp.types import QPData, QPSolution, ADMMSettings
@@ -38,7 +41,7 @@ from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
 
 __all__ = ["box_admm_solve", "classify_constraints", "rho_vector",
-           "penalties"]
+           "penalties", "epoch_route"]
 
 
 def _inf_norm(v):
@@ -176,22 +179,36 @@ def _dense_epoch(kkt, qp: QPData, rho, rb, state, settings: ADMMSettings):
     return x, z, q, y, yb
 
 
-def _epoch(kkt, qp: QPData, rho, rb, state, settings: ADMMSettings):
-    """One epoch on a batch of lanes, dispatched on ``kkt_solver``, the
-    structure and the KKT's size (the JAX package's ``_make_epoch_fn`` as a
-    direct call)."""
+def epoch_route(n: int, m: int, settings: ADMMSettings) -> str:
+    """The epoch a QP of n primals and m rows takes, chosen by shape before
+    any launch in the JAX package's order (its ``_make_epoch_fn``):
+    ``"bbt"`` (the BBT epoch kernel) for ``kkt_solver="kernel"`` with a
+    consistent structure of this QP's n and m that the kernel fits
+    (``bbt_kernel_fits``); else ``"dense_kernel"`` (the dense epoch kernel)
+    for ``kkt_solver="kernel"`` where ``epoch_kernel_fits(n, m)``; else
+    ``"lu"`` (the batched LU or inverse epoch)."""
     stc = settings.structure
     if settings.kkt_solver == "kernel":
-        kw = dict(sigma=float(settings.sigma), alpha=float(settings.alpha),
-                  iters=int(settings.check_every))
-        args = (kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb, *state)
-        if stc is not None:
-            if not structure_is_consistent(stc):
-                raise ValueError("inconsistent CollocStructure")
-            return bbt_admm_epoch_batched(*args, st=stc, **kw)
-        if epoch_kernel_fits(qp.h.shape[1], qp.al.shape[1]):
-            return admm_epoch_batched(*args, **kw)
-    return _dense_epoch(kkt, qp, rho, rb, state, settings)
+        if (stc is not None and stc.n == n and stc.m == m
+                and structure_is_consistent(stc) and bbt_kernel_fits(stc)):
+            return "bbt"
+        if epoch_kernel_fits(n, m):
+            return "dense_kernel"
+    return "lu"
+
+
+def _epoch(kkt, qp: QPData, rho, rb, state, settings: ADMMSettings):
+    """One epoch on a batch of lanes through :func:`epoch_route`'s route
+    (the JAX package's ``_make_epoch_fn`` as a direct call)."""
+    route = epoch_route(qp.h.shape[1], qp.al.shape[1], settings)
+    if route == "lu":
+        return _dense_epoch(kkt, qp, rho, rb, state, settings)
+    kw = dict(sigma=float(settings.sigma), alpha=float(settings.alpha),
+              iters=int(settings.check_every))
+    args = (kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb, *state)
+    if route == "bbt":
+        return bbt_admm_epoch_batched(*args, st=settings.structure, **kw)
+    return admm_epoch_batched(*args, **kw)
 
 
 def _polish(qp: QPData, x, y, yb, rp, rd, settings: ADMMSettings):

@@ -48,10 +48,14 @@ def qp_data(qp, dtype=torch.float64, device="cuda") -> QPData:
 
 def sqp_solution(sol, dtype=torch.float64, device="cuda") -> SQPSolution:
     """A (batched) SQP solution -> the port's SQPSolution; status and
-    iteration counts become int32."""
+    iteration counts become int32, a missing trace None."""
     out = {}
     for f in SQPSolution._fields:
-        t = tensor(getattr(sol, f), dtype, device)
+        v = getattr(sol, f, None)
+        if v is None:
+            out[f] = None
+            continue
+        t = tensor(v, dtype, device)
         if f in ("status", "iters", "qp_iters"):
             t = t.to(torch.int32)
         out[f] = t

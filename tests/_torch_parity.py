@@ -27,7 +27,8 @@ from polympc_tpu.qp.types import ADMMSettings as JADMMSettings
 
 from polympc_torch import headline
 from polympc_torch.basis import Chebyshev, SegmentedBasis
-from polympc_torch.ocp import OCP, transcribe
+from polympc_torch.models import parking_ocp
+from polympc_torch.ocp import transcribe
 
 KITE_XL = [0.0, -np.pi / 2, -np.pi, -100.0, -100.0]
 KITE_XU = [np.pi / 2, np.pi / 2, np.pi, 100.0, 100.0]
@@ -62,24 +63,10 @@ def jax_parking():
 
 
 def torch_parking_ocp():
-    """The JAX package's parking_ocp(nonlinear_constraint=True), in torch:
-    time-scaled kinematic car (p0 scales the dynamics, Mayer = p0) with the
-    node inequality g0 = u0^2 cos(u1)."""
-    def dynamics(x, u, p, d, t):
-        v, phi, theta = u[0], u[1], x[2]
-        rhs = torch.stack([v * torch.cos(theta) * torch.cos(phi),
-                           v * torch.sin(theta) * torch.cos(phi),
-                           v * torch.sin(phi) / d[0]])
-        return p[0] * rhs
-
-    def mayer(x, p, d):
-        return p[0]
-
-    def ineq(x, u, p, d, t):
-        return (u[0] ** 2 * torch.cos(u[1]))[None]
-
-    return OCP(dynamics=dynamics, nx=3, nu=2, np_=1, nd=1, mayer=mayer,
-               ineq=ineq, ng=1)
+    """The port's parking_ocp(nonlinear_constraint=True): time-scaled
+    kinematic car (p0 scales the dynamics, Mayer = p0) with the node
+    inequality g0 = u0^2 cos(u1)."""
+    return parking_ocp(nonlinear_constraint=True)
 
 
 def torch_parking():

@@ -7,7 +7,8 @@ machine with a card and no JAX (tests/conftest.py imports JAX, hence
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Inputs are well-conditioned (random diagonally dominant quasi-definite
-KKTs in the kite's and the race car's BBT patterns, and in a bordered one;
+KKTs in the kite's, the race car's and the CSTR's BBT patterns, and in a
+bordered one;
 dense quasi-definite boxADMM KKTs at the spline QP's shape, at K=132 and
 box-only; diagonally dominant matrices for the LDL^T factor), so float32
 results of kernel and plain version agree to 1e-4 relative.  The BBT
@@ -15,6 +16,12 @@ kernels and the explicit inverse compute by another algorithm than their
 plain versions (explicit block inverses by a Gauss-Jordan sweep, where the
 plain versions substitute through LDL^T factors); against the PyTorch
 mirror of their own algorithm they agree to 1e-5 relative per lane.
+
+The fit rules route by shape before any launch, as the JAX package does:
+a structure the BBT kernel does not fit, or one of another QP, takes the
+dense epoch kernel (or the LU epoch), a float32 refine solve above
+``LDLT_MAX_K`` takes ``torch.linalg.solve``; each is held against the
+same problem in float64.  The MPC facade runs on the card in float64.
 """
 import numpy as np
 import pytest
@@ -32,7 +39,7 @@ SIGMA, ALPHA, ITERS = 1e-6, 1.6, 50
 # kernel vs the mirror of its own algorithm: the same operations, summed in
 # another order, on well-conditioned inputs
 MIRROR_RTOL = 1e-5
-STRUCTURES = ["kite", "bordered", "race_car"]
+STRUCTURES = ["kite", "bordered", "race_car", "cstr"]
 
 
 @pytest.fixture
@@ -47,12 +54,14 @@ def dev():
 
 def _structure(name):
     """The kite's BBT structure (S=2, k=72), a bordered one (the kite's
-    shape with two parameters) and the race car's (S=2, k=96: nx=6, nu=3
-    on Chebyshev(5) x 2)."""
+    shape with two parameters), the race car's (S=2, k=96: nx=6, nu=3 on
+    Chebyshev(5) x 2) and the CSTR batch's (S=2, k=64: nx=4, nu=2)."""
     if name == "kite":
         return kite_problem("cpu")[3].qp.structure
     if name == "bordered":
         return bbt_structure(11, 5, 2, 0, 2, 0, 5, 2)
+    if name == "cstr":
+        return bbt_structure(11, 4, 2, 0, 0, 0, 5, 2)
     return bbt_structure(11, 6, 3, 0, 0, 0, 5, 2)
 
 
@@ -378,3 +387,113 @@ def test_ldlt_inverse_refuses_a_block_too_large(dev):
     ldlt.ldlt_inverse(torch.eye(192, device=dev)[None])
     with pytest.raises(ValueError, match="K=193"):
         ldlt.ldlt_inverse(torch.eye(193, device=dev)[None])
+
+
+def _random_qp(n, m, B, seed, dev, dtype=torch.float32):
+    """A random strictly convex QP with equality-like row boxes."""
+    from polympc_torch.qp.types import QPData
+    rng = np.random.default_rng(seed)
+    G = rng.normal(size=(B, n, n))
+    H = G @ G.transpose(0, 2, 1) / n + np.eye(n)
+    A = rng.normal(size=(B, m, n)) / np.sqrt(n)
+    c = rng.normal(size=(B, m))
+    xb = 1.0 + rng.uniform(size=(B, n))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    return QPData(H=t(H), h=t(rng.normal(size=(B, n))), A=t(A),
+                  al=t(c - 0.5), au=t(c + 0.5), xl=t(-xb), xu=t(xb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tile", "smem", "mismatched", "large"])
+def test_epoch_routes_by_shape_on_the_card(case, dev):
+    """A structure the BBT kernel does not fit (S=1 k=200: the register
+    tile; S=2 k=168: shared memory), a structure of another QP (the kite's
+    on a CSTR-sized QP) and one too large for the dense kernel too (K=341)
+    take the dense epoch kernel, or the LU epoch, without raising: the same
+    launches as without a structure, the same result, and the float64
+    solve's within 1e-3."""
+    import dataclasses
+    from polympc_torch.qp import box_admm_solve
+    from polympc_torch.qp.box_admm import epoch_route
+    from polympc_torch.qp.types import ADMMSettings
+    st = {"tile": bbt_structure(7, 13, 2, 0, 0, 0, 6, 1),
+          "smem": bbt_structure(11, 12, 3, 0, 0, 0, 5, 2),
+          "mismatched": _structure("kite"),
+          "large": bbt_structure(11, 15, 1, 0, 0, 0, 5, 2)}[case]
+    n, m = (66, 44) if case == "mismatched" else (st.n, st.m)
+    assert not bbt_kernel.bbt_kernel_fits(st) or (st.n, st.m) != (n, m)
+    qp = _random_qp(n, m, 8, 1, dev)
+    s = ADMMSettings(kkt_solver="kernel", max_epochs=6, polish=False)
+    route = epoch_route(n, m, dataclasses.replace(s, structure=st))
+    assert route == ("lu" if case == "large" else "dense_kernel")
+    runs = []
+    for structure in (st, None):
+        _build.reset_launches()
+        sol = box_admm_solve(qp, settings=dataclasses.replace(
+            s, structure=structure))
+        torch.cuda.synchronize()
+        runs.append((sol, dict(_build.LAUNCHES)))
+    (a, la), (b, lb) = runs
+    assert la == lb and la["bbt_epoch"] == 0
+    assert (la["admm_epoch"] > 0) == (route == "dense_kernel")
+    for f in ("x", "y", "y_box"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    q64 = type(qp)(*(t.double() for t in qp))
+    ref = box_admm_solve(q64, settings=dataclasses.replace(
+        s, kkt_solver="lu"))
+    torch.testing.assert_close(a.x.double(), ref.x, rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_refine_above_the_ldlt_fit_takes_the_lu_solve(dev):
+    """An fp32 Newton-KKT solve at K = LDLT_MAX_K + 1 takes
+    torch.linalg.solve (no LDL^T launch) and agrees with float64."""
+    from polympc_torch.nlp.refine import _newton_kkt_solve
+    K = ldlt.LDLT_MAX_K + 1
+    rng = np.random.default_rng(8)
+    A = rng.normal(size=(4, K, K))
+    M = A + A.transpose(0, 2, 1) + 4.0 * K * np.diag(
+        np.where(np.arange(K) % 2, -1.0, 1.0))[None]
+    r = rng.normal(size=(4, K))
+    _build.reset_launches()
+    x = _newton_kkt_solve(torch.as_tensor(M, dtype=torch.float32,
+                                          device=dev),
+                          torch.as_tensor(r, dtype=torch.float32,
+                                          device=dev))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ldlt_factor_solve"] == 0
+    assert _build.LAUNCHES["ldlt_solve"] == 0
+    want = np.linalg.solve(M, r[..., None])[..., 0]
+    np.testing.assert_allclose(x.double().cpu().numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_mpc_on_the_card(dev):
+    """The robot MPC (tests/test_control.py's set-up) on the card in
+    float64: SOLVED, the warm re-solve no slower, and the same trajectory
+    as on the CPU within 1e-6."""
+    from polympc_torch.basis import Chebyshev, SegmentedBasis
+    from polympc_torch.control import MPC
+    from polympc_torch.models import robot_ocp
+    from polympc_torch.nlp import SQPSettings
+    from polympc_torch.qp.types import ADMMSettings
+    sols = []
+    for device in ("cuda", "cpu"):
+        mpc = MPC(robot_ocp(), SegmentedBasis(Chebyshev(5), 2), t0=0.0,
+                  tf=2.0, settings=SQPSettings(
+                      hessian="exact", max_iter=100,
+                      qp=ADMMSettings(eps_abs=1e-6, eps_rel=1e-6,
+                                      max_epochs=40)), device=device)
+        mpc.set_static_parameters([2.0])
+        mpc.control_bounds([-1.5, -0.75], [1.5, 0.75])
+        mpc.initial_conditions([0.5, 0.5, 0.5])
+        mpc.x_guess([0.5, 0.5, 0.5])
+        cold = mpc.solve()
+        mpc.initial_conditions([0.51, 0.49, 0.5])
+        warm = mpc.solve()
+        assert int(cold.status) == int(warm.status) == 1
+        assert int(warm.iters) <= int(cold.iters)
+        assert mpc.solution_x().device.type == device
+        sols.append(mpc.solution_x().cpu())
+    torch.testing.assert_close(sols[0], sols[1], rtol=0, atol=1e-6)

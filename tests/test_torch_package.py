@@ -171,8 +171,9 @@ def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
 
 
 def _public_callables():
-    """Every public function, method and dataclass of the port, by module
-    (read from the modules, nothing called)."""
+    """Every public function, method, dataclass and class with its own
+    constructor of the port, by module (read from the modules, nothing
+    called)."""
     import dataclasses
     import importlib
     import inspect
@@ -188,7 +189,7 @@ def _public_callables():
             if inspect.isfunction(obj):
                 yield f"{mod.__name__}.{name}", obj
             elif inspect.isclass(obj):
-                if dataclasses.is_dataclass(obj):
+                if dataclasses.is_dataclass(obj) or "__init__" in vars(obj):
                     yield f"{mod.__name__}.{name}", obj
                 for m_name, m in vars(obj).items():
                     if inspect.isfunction(m) and not m_name.startswith("_"):
@@ -220,5 +221,12 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.utils.convert.dist_bounds",
                  "polympc_torch.utils.convert.dist_solution",
                  "polympc_torch.dist_point.dist_problem",
-                 "polympc_torch.dist_point.run"):
+                 "polympc_torch.dist_point.run",
+                 "polympc_torch.control.mpc.MPC",
+                 "polympc_torch.control.nmpc.NMPC",
+                 "polympc_torch.control.nmpf.NMPF",
+                 "polympc_torch.nlp.hessian.block_hessian_identity",
+                 "polympc_torch.cstr_point.cstr_problem",
+                 "polympc_torch.cstr_point.batch_fn",
+                 "polympc_torch.cstr_point.run"):
         assert qual in seen, qual

@@ -2,16 +2,19 @@
 """Where the time goes in the port's batched paths, on one NVIDIA card.
 
     python3 trace_port.py [kite] [spline] [frame] [race_car] [dist_kite_s8]
+                          [cstr]
 
-Each named path (all five by default) is built at the widths that
+Each named path (all six by default) is built at the widths that
 chip_smoke.py drives: bench's certified kite batch (B=512), the spline QP
 batch (B=4096), the frame-transform batch (B=4096), the certified
-race-car batch (B=512) and the certified horizon-partitioned kite batch
+race-car batch (B=512), the certified horizon-partitioned kite batch
 (S=8 segments, B=128, polympc_torch/dist_point.py), cut to its first
 DIST_TRACE_ITERS SQP iterations: every lane is still active there and
 every inner QP runs to its 400-iteration cap, so each iteration does the
 same work, while the whole 60-iteration batch under the profiler outlasts
-15 minutes.  Its timed unit runs once to warm up, once timed on the host
+15 minutes; and the certified CSTR batch (B=256,
+polympc_torch/cstr_point.py), cut to its first CSTR_TRACE_ITERS SQP
+iterations (its lanes run 7 to 150, 59 on average in the JAX record).  Its timed unit runs once to warm up, once timed on the host
 clock (ending in torch.cuda.synchronize()), then once under torch.profiler
 with CPU and CUDA activities.  Per path one JSON line:
 
@@ -35,12 +38,14 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DIST_TRACE_ITERS = 3
+CSTR_TRACE_ITERS = 10
 
 
 def units(dev):
     """name -> a function of no arguments running one batched unit."""
     import torch
-    from polympc_torch import dist_point, headline, headline_table as ht
+    from polympc_torch import cstr_point, dist_point, headline
+    from polympc_torch import headline_table as ht
     from polympc_torch.control.path import project_on_path_newton
     from polympc_torch.qp import box_admm_solve
 
@@ -61,7 +66,9 @@ def units(dev):
     return {"kite": lambda: headline.batch_fn(512, dev), "spline": spline,
             "frame": frame, "race_car": race_car,
             "dist_kite_s8": lambda: dist_point.batch_fn(
-                128, dev, max_iter=DIST_TRACE_ITERS)}
+                128, dev, max_iter=DIST_TRACE_ITERS),
+            "cstr": lambda: cstr_point.batch_fn(
+                256, dev, max_iter=CSTR_TRACE_ITERS)}
 
 
 def busy_ms(intervals):
