@@ -24,7 +24,8 @@ Phases, each printing its own lines and raising on failure:
      occupancy API and by the shared memory alone); at the CSTR batch's
      shape the BBT epoch on its first epoch, and the epoch's fit rule in
      Python (bbt_kernel_fits) against the kernel's own on seven
-     structures;
+     structures; the dense epoch also at admm_solve's first epoch of the
+     stacked spline QP (B=4096, n=32, m=47, K=79);
   4. main paths, each with the launch counts set to 0 just before it and
      read just after:
        kite: bench.py's certified kite batch (B=512), one warm-up then the
@@ -34,7 +35,7 @@ Phases, each printing its own lines and raising on failure:
        against the JAX package's record (tests/data/headline_jax_cpu.npz):
        spline-fitting QP (B=4096, and B=1 beside the LU epoch), frame
        transform (B=4096, and B=1), race car (B=512 with the fp64 certify,
-       3 repetitions, and the B=1 warm re-solve, 10 repetitions);
+       2 repetitions, and the B=1 warm re-solve, 5 repetitions);
        dist_kite_s8: the horizon-partitioned SQP (polympc_torch/
        dist_point.py: kite, Chebyshev(5) x 8 segments, B=128, fp64
        certify), a small warm-up then one timed batch through the kernel
@@ -46,11 +47,25 @@ Phases, each printing its own lines and raising on failure:
        (polympc_torch/cstr_point.py: B=256, fp32 SQP through the BBT epoch,
        fp64 certify) after a B=8 warm-up, against the JAX package's record
        of its "lu" route (tests/data/cstr_b256_jax_cpu.npz); then, outside
-       the counts, its first 64 lanes through the port's "lu" route; after
+       the counts, its first 16 lanes through the port's "lu" route; after
        the path, the LDL^T kernels on its certify matrices (K=110);
        mpc: the MPC facade in float64 (no kernel): the robot quick start
        with default settings and its warm re-solve, the CSTR with
        block-BFGS, and the closed loop of examples/cstr_nmpc.py;
+       the solver layer (polympc_torch/solvers_point.py) against the JAX
+       package's record (tests/data/solvers_jax_cpu.npz):
+       kite_ip_b512: bench's kite batch through the float64 interior
+         point after a B=8 warm-up (no kernel);
+       mpc_ip: MPC(solver="ip") on the robot quick start beside the SQP
+         route, its warm re-solve and 10 more (float64, no kernel);
+       qp_solvers: the spline QPs (B=4096) through the interior point
+         (float64), admm_solve in float32 on the dense epoch kernel (K=79),
+         the active set on the host (the first 256 lanes) and the VJP of
+         box_admm_solve (float32 forward through the kernel);
+       lqr: BASELINE config 2, the quadrotor at B=1 (mean of 50) and at
+         B=4096 linearisation points, against scipy (float64, no kernel);
+       nlp_extras: psarc, the trust region, projected gradient and a
+         projection, one float64 call each with the JAX tests' oracles;
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -71,6 +86,8 @@ CSTR_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "cstr_b256_jax_cpu.npz")
 DIST_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "dist_kite_s8_jax_cpu.npz")
+SOLVERS_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                 "solvers_jax_cpu.npz")
 
 # Tolerances of the kernel-vs-plain phase.
 # The epoch runs 50 over-relaxed ADMM iterations in float32; the kernel and
@@ -134,7 +151,40 @@ DIST_SLACK = 3
 # routes part so on lane 7 of 8 at B=8; PERF.md §6)
 CSTR_SLACK = 5
 CSTR_COST_RTOL = 1e-3
-CSTR_LU_LANES = 64
+CSTR_LU_LANES = 16
+# The solver layer's paths (polympc_torch/solvers_point.py) against the JAX
+# record (tests/data/solvers_jax_cpu.npz).  The kite through the interior
+# point (B=512, float64): SOLVED at least the record's less 10 (2% of B),
+# and on the lanes SOLVED in both the cost within 1e-6 relative (Ipopt's
+# tolerance; both packages stop at the same optimum).
+KITE_IP_SLACK = 10
+KITE_IP_COST_RTOL = 1e-6
+# MPC(solver="ip") on the robot: x within 1e-3 of the SQP route (the JAX
+# test's tolerance).
+MPC_IP_X_ATOL = 1e-3
+# The spline QPs: the interior point (float64) solves as many lanes as the
+# record, x within 1e-6 of it on the stored lanes.  admm_solve (float32,
+# through the dense epoch kernel at K=79) SOLVED at least the record's
+# less 41 (1% of B); on the lanes SOLVED there and by the interior point,
+# ||x - x_ip||_inf / (1 + ||x_ip||_inf) within ADMM_X_RTOL on at least
+# 99% of them: the ADMM stops at eps_abs = eps_rel = 1e-4, and the float32
+# plain version on the CPU stays within 5e-5 (B=32), so 1e-3 rather than
+# 1e-2.  The active set (host, the first 256 lanes): every lane SOLVED, x
+# within 1e-6 of the interior point.  The VJP (float32 forward through the
+# kernel) against the float64 record: median per-lane relative error of
+# the cotangents at most 1e-3 (the float32 plain version on the CPU: 1e-6).
+QP_IP_X_ATOL = 1e-6
+ADMM_SLACK = 41
+ADMM_X_RTOL = 1e-3
+ADMM_X_SHARE = 0.99
+AS_X_ATOL = 1e-6
+VJP_MEDIAN_RTOL = 1e-3
+# LQR (BASELINE config 2): P at B=1 and on LQR_SCIPY_LANES lanes of the
+# batch against scipy at tests/test_control.py's rtol 1e-5, atol 1e-7;
+# the batch's CARE residual relative to ||A'P||_F + ||Q||_F at most 1e-8.
+LQR_RTOL, LQR_ATOL = 1e-5, 1e-7
+LQR_RES_TOL = 1e-8
+LQR_SCIPY_LANES = 64
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -673,6 +723,7 @@ def phase_parity_dense(dev, results):
     from polympc_torch.ops import ldlt
     from polympc_torch.qp.box_admm import _build_kkt, penalties
     from polympc_torch.qp.ruiz import ruiz_equilibrate
+    from polympc_torch.qp.types import QPData
     rng = np.random.default_rng(11)
     qs = ht.spline_settings()
     _, big = ht.spline_batch(4096, dev)
@@ -704,6 +755,28 @@ def phase_parity_dense(dev, results):
         "launch_K132": epoch_launch(ae, 77, 55)}
     say("parity", f"admm_epoch at the spline QP's first scaled epoch "
                   f"B={B} K={n + m}: {results['admm_epoch']}")
+    # admm_solve's stacked QP ([I; A]: m=47, K=79) at its first epoch, as
+    # the qp_solvers path runs it
+    eye = torch.eye(n, device=dev).expand(B, n, n)
+    inf = torch.full((B, n), float("inf"), device=dev)
+    sq, _ = ruiz_equilibrate(
+        QPData(big.H, big.h, torch.cat([eye, big.A], 1),
+               torch.cat([big.xl, big.al], 1),
+               torch.cat([big.xu, big.au], 1), -inf, inf), qs.equil_iters)
+    m2 = sq.al.shape[1]
+    rho2, rb2 = penalties(torch.full((B,), qs.rho, device=dev), sq, qs)
+    stacked = (_build_kkt(sq, rho2, rb2, qs.sigma), sq.h, sq.al, sq.au,
+               sq.xl, sq.xu, rho2, rb2, zero(n), zero(m2), zero(n),
+               zero(m2), zero(n))
+    k79 = {**check_against_f64("admm_epoch (stacked)", kern, plain,
+                               stacked, ()),
+           **timing(lambda: kern(*stacked), lambda: plain(*stacked), None,
+                    bound_admm_epoch(B, n, m2, qs.check_every)),
+           "shape": f"B={B} n={n} m={m2} iters={qs.check_every}",
+           "launch": epoch_launch(ae, n, m2)}
+    results["admm_epoch"]["stacked_K79"] = k79
+    say("parity", f"admm_epoch at admm_solve's first scaled epoch of the "
+                  f"stacked spline QP B={B} K={n + m2}: {k79}")
 
     for K in (132, 165):
         A, _ = diag_dominant(512, K, rng, dev)
@@ -1154,14 +1227,17 @@ def check_factor_against_f64(name, Fk, dk, M32):
 def run_path(name, fn, must_launch):
     """Drive one main path with the launch counts set to 0 just before it
     and read just after; raise if it never launched one of its kernels."""
+    import time
     from polympc_torch.ops import _build
     _build.reset_launches()
+    t0 = time.perf_counter()
     out = fn()
+    secs = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
     for k in must_launch:
         if launches[k] <= 0:
             raise RuntimeError(f"{name} path never launched kernel {k}")
-    say(name, f"launches {launches}")
+    say(name, f"launches {launches}; the path took {secs:.1f} s")
     return out, launches
 
 
@@ -1247,8 +1323,8 @@ def phase_frame(rec, card, dev):
 def phase_race_car(rec, card, dev):
     from polympc_torch import headline_table as ht
     (res, lanes), launches = run_path(
-        "race_car", lambda: ht.race_car(dev, batch=512, reps=10,
-                                        batch_reps=3),
+        "race_car", lambda: ht.race_car(dev, batch=512, reps=5,
+                                        batch_reps=2),
         ("bbt_epoch", "ldlt_factor_solve", "ldlt_solve"))
     mine, theirs = lanes["certified"], rec["race_certified"].astype(bool)
     say("race_car", f"{card}: {res}")
@@ -1545,6 +1621,190 @@ def phase_mpc(card, dev):
     return out, launches
 
 
+def phase_kite_ip(srec, card, dev):
+    """bench's kite batch (B=512) through the interior point in float64
+    after a B=8 warm-up, against the JAX record."""
+    from polympc_torch import solvers_point as sp
+    x0s = srec["kite_x0s"]
+    (extra, lanes), launches = run_path(
+        "kite_ip_b512", lambda: sp.kite_ip(x0s.shape[0], dev, x0s=x0s,
+                                           warmup=8), ())
+    if lanes["cost"].shape != srec["kite_cost"].shape:
+        raise RuntimeError("kite_ip path: results of the wrong shape")
+    mine, theirs = lanes["status"] == 1, srec["kite_status"] == 1
+    both = mine & theirs
+    rel = np.abs(lanes["cost"][both] - srec["kite_cost"][both]) / \
+        np.abs(srec["kite_cost"][both])
+    differ = np.nonzero(lanes["iters"] != srec["kite_iters"])[0]
+    say("kite_ip_b512", f"{card}, float64, no kernel on this path: {extra}")
+    say("kite_ip_b512", f"record SOLVED {int(theirs.sum())} (mean iters "
+                        f"{srec['kite_iters'].mean():.4f}); SOLVED in both "
+                        f"{int(both.sum())}, port only "
+                        f"{np.nonzero(mine & ~theirs)[0].tolist()}, record "
+                        f"only {np.nonzero(~mine & theirs)[0].tolist()}; "
+                        f"lanes whose iteration count differs "
+                        f"{len(differ)}: {differ[:40].tolist()}; cost on "
+                        f"common lanes: largest relative difference "
+                        f"{rel.max():.3e}")
+    if extra["status_solved"] < int(theirs.sum()) - KITE_IP_SLACK:
+        raise RuntimeError(f"kite_ip path: SOLVED {extra['status_solved']},"
+                           f" fewer than the record's {int(theirs.sum())} - "
+                           f"{KITE_IP_SLACK}")
+    if not (np.isfinite(lanes["cost"][mine]).all()
+            and rel.max() <= KITE_IP_COST_RTOL):
+        raise RuntimeError(f"kite_ip path: cost on lanes SOLVED in both "
+                           f"differs by {rel.max():.3e} relative (tol "
+                           f"{KITE_IP_COST_RTOL})")
+    return extra, launches
+
+
+def phase_mpc_ip(card, dev):
+    """MPC(solver="ip") on the robot quick start, float64."""
+    from polympc_torch import solvers_point as sp
+    res, launches = run_path("mpc_ip", lambda: sp.mpc_ip(dev), ())
+    say("mpc_ip", f"{card}, float64, no kernel on this path: {res}")
+    if not (res["cold_status"] == res["sqp_status"] == res["warm_status"]
+            == 1 and res["resolves_solved"] == res["resolves"]):
+        raise RuntimeError(f"mpc_ip path: statuses {res}")
+    if not res["max_abs_dx_vs_sqp"] <= MPC_IP_X_ATOL:
+        raise RuntimeError(f"mpc_ip path: x differs from the SQP route by "
+                           f"{res['max_abs_dx_vs_sqp']:.3e} (tol "
+                           f"{MPC_IP_X_ATOL})")
+    return res, launches
+
+
+def active_rows(qp, x, tol):
+    """The VJP's active sets at x (the backward's rule): general rows and
+    box rows with a bound within tol, as one (B, m + n) boolean array."""
+    A, al, au, xl, xu = (getattr(qp, f).cpu().numpy()
+                         for f in ("A", "al", "au", "xl", "xu"))
+    Ax = np.einsum("bij,bj->bi", A, x)
+    return np.concatenate([(Ax - al <= tol) | (au - Ax <= tol),
+                           (x - xl <= tol) | (xu - x <= tol)], 1)
+
+
+def phase_qp_solvers(srec, card, dev):
+    """The spline-fit QP batch (B=4096) through the interior point, the
+    stacked ADMM (kernel 7 at K=79), the active set (host) and the VJP,
+    against the JAX record and each other."""
+    import torch
+    from polympc_torch import solvers_point as sp
+    from polympc_torch.headline_table import spline_batch, spline_settings
+    (extra, lanes), launches = run_path(
+        "qp_solvers", lambda: sp.qp_solvers(dev), ("admm_epoch",))
+    say("qp_solvers", f"{card}: {extra}")
+    # the interior point, float64
+    ns = srec["ip_x"].shape[0]
+    ip_ok = lanes["ip_status"] == 1
+    want = int((srec["ip_status"] == 1).sum())
+    dx_ip = np.abs(lanes["ip_x"][:ns] - srec["ip_x"]).max()
+    say("qp_solvers", f"qp_ip_solve: SOLVED {int(ip_ok.sum())} (record "
+                      f"{want}), lanes whose iteration count differs "
+                      f"{int((lanes['ip_iters'] != srec['ip_iters']).sum())}"
+                      f", max |x - x_record| on {ns} lanes {dx_ip:.3e}")
+    if int(ip_ok.sum()) != want or not dx_ip <= QP_IP_X_ATOL:
+        raise RuntimeError("qp_solvers path: the interior point disagrees "
+                           "with the record")
+    # admm_solve, float32 through the kernel
+    ad_ok = lanes["admm_status"] == 1
+    want = int((srec["admm_status"] == 1).sum())
+    both = ad_ok & ip_ok
+    xi = lanes["ip_x"][both]
+    err = np.abs(lanes["admm_x"][both] - xi).max(1) / \
+        (1.0 + np.abs(xi).max(1))
+    share = float((err <= ADMM_X_RTOL).mean()) if both.any() else 0.0
+    say("qp_solvers", f"admm_solve (stacked, K=79, kernel): SOLVED "
+                      f"{int(ad_ok.sum())} (record {want}, "
+                      f"{srec['admm_kkt_solver']} epoch); against the "
+                      f"interior point on {int(both.sum())} lanes: worst "
+                      f"{err.max():.3e}, median {np.median(err):.3e}, "
+                      f"share within {ADMM_X_RTOL} {share:.4f}")
+    if int(ad_ok.sum()) < want - ADMM_SLACK or share < ADMM_X_SHARE:
+        raise RuntimeError("qp_solvers path: admm_solve fails its gates")
+    # the active set, on the host by definition
+    na = lanes["as_x"].shape[0]
+    dx_as = np.abs(lanes["as_x"] - lanes["ip_x"][:na]).max()
+    say("qp_solvers", f"qp_active_set_solve (host: Goldfarb-Idnani through "
+                      f"ctypes, the solver's definition in both packages) "
+                      f"on {na} lanes: SOLVED "
+                      f"{int((lanes['as_status'] == 1).sum())}, max |x - "
+                      f"x_ip| {dx_as:.3e}")
+    if not ((lanes["as_status"] == 1).all() and dx_as <= AS_X_ATOL):
+        raise RuntimeError("qp_solvers path: the active set fails its gates")
+    # the VJP, float32 forward through the kernel, against float64
+    nv = srec["vjp_x"].shape[0]
+    names = sp.VJP_FIELDS
+    mine = np.concatenate([lanes[f"vjp_{k}"][:nv] for k in names], 1)
+    ref = np.concatenate([srec[f"vjp_{k}"].astype(np.float64)
+                          for k in names], 1)
+    rel = np.abs(mine - ref).max(1) / np.maximum(np.abs(ref).max(1), 1e-30)
+    qp64 = spline_batch(nv, "cpu", torch.float64)[1]
+    tol = 10.0 * spline_settings().eps_abs + 1e-8
+    flips = (active_rows(qp64, lanes["vjp_x"][:nv].astype(np.float64), tol)
+             != active_rows(qp64, srec["vjp_x"], tol)).any(1)
+    say("qp_solvers", f"VJP d(w'x*)/d({', '.join(names)}) on {nv} lanes "
+                      f"against the float64 record: median relative error "
+                      f"{np.median(rel):.3e}, worst {rel.max():.3e} (lane "
+                      f"{int(rel.argmax())}); lanes whose active set "
+                      f"differs {np.nonzero(flips)[0].tolist()}")
+    if not np.median(rel) <= VJP_MEDIAN_RTOL:
+        raise RuntimeError(f"qp_solvers path: VJP median relative error "
+                           f"{np.median(rel):.3e} > {VJP_MEDIAN_RTOL}")
+    return extra, launches
+
+
+def phase_lqr(card, dev):
+    """LQR / CARE (BASELINE config 2): the quadrotor at B=1 and B=4096
+    linearisation points, float64, against scipy."""
+    from scipy.linalg import solve_continuous_are
+    from polympc_torch import solvers_point as sp
+    (extra, lanes), launches = run_path("lqr", lambda: sp.lqr_batch(dev), ())
+    A, Bm, Q, R = sp.quadrotor()
+    P_ref = solve_continuous_are(A, Bm, Q, R)
+    b1 = np.abs(lanes["P1"] - P_ref) <= LQR_ATOL + LQR_RTOL * np.abs(P_ref)
+    worst = 0.0
+    for b in range(LQR_SCIPY_LANES):
+        ref = solve_continuous_are(lanes["A"][b], Bm, Q, R)
+        worst = max(worst, float((np.abs(lanes["P"][b] - ref)
+                                  / (LQR_ATOL + LQR_RTOL * np.abs(ref))
+                                  ).max()))
+    eig = np.linalg.eigvals(lanes["A"] - Bm[None] @ lanes["K"])
+    stable = (eig.real < 0).all(1)
+    say("lqr", f"{card}, float64, no kernel on this path: {extra}")
+    say("lqr", f"B=1 P against scipy within rtol {LQR_RTOL} atol {LQR_ATOL}:"
+               f" {bool(b1.all())}; {LQR_SCIPY_LANES} batch lanes against "
+               f"scipy: worst error / tolerance {worst:.3e}; worst relative "
+               f"CARE residual {extra['worst_rel_residual']:.3e} (lane "
+               f"{int(lanes['rel_residual'].argmax())}); closed loops "
+               f"stable {int(stable.sum())}/{stable.size}")
+    if not (b1.all() and worst <= 1.0 and stable.all()
+            and extra["worst_rel_residual"] <= LQR_RES_TOL):
+        raise RuntimeError("lqr path fails its gates")
+    return extra, launches
+
+
+def phase_nlp_extras(card, dev):
+    """psarc, the trust region, projected gradient and the projection, one
+    float64 call each on the card, with the JAX tests' oracles."""
+    from polympc_torch import solvers_point as sp
+    out, launches = run_path("nlp_extras", lambda: sp.nlp_extras(dev), ())
+    say("nlp_extras", f"{card}, float64, no kernel on this path: {out}")
+    ps, tr, gp = out["psarc"], out["trust_region"], out["projected_gradient"]
+    checks = {
+        "psarc": ps["converged"] and ps["residual"] < 1e-6
+        and ps["lambda_first_last"] == [1.0, 0.0],
+        "trust_region": tr["status"] == 1
+        and np.abs(np.asarray(tr["x"]) - 1.0).max() <= 1e-4,
+        "projected_gradient": gp["status"] == 1
+        and np.abs(np.asarray(gp["x"]) - [0.1, 1.0]).max() <= 1e-5,
+        "projection": out["projection"]["device"].startswith("cuda")
+        and out["projection"]["max_error"] <= 1e-6}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"nlp_extras path: {bad} fail their oracles")
+    return out, launches
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -1571,6 +1831,7 @@ def main():
     rec = dict(np.load(HEADLINE_REFERENCE))
     drec = dict(np.load(DIST_REFERENCE))
     crec = dict(np.load(CSTR_REFERENCE))
+    srec = dict(np.load(SOLVERS_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
@@ -1585,6 +1846,11 @@ def main():
     _, cstr_lanes, paths["cstr_b256"] = phase_cstr(crec, smi, "cuda")
     phase_parity_cstr_refine(crec, cstr_lanes, "cuda", parity)
     paths["mpc"] = phase_mpc(smi, "cuda")[1]
+    paths["kite_ip_b512"] = phase_kite_ip(srec, smi, "cuda")[1]
+    paths["mpc_ip"] = phase_mpc_ip(smi, "cuda")[1]
+    paths["qp_solvers"] = phase_qp_solvers(srec, smi, "cuda")[1]
+    paths["lqr"] = phase_lqr(smi, "cuda")[1]
+    paths["nlp_extras"] = phase_nlp_extras(smi, "cuda")[1]
     kernels = []
     for n, src, rep in KERNELS:
         by_path = {p: c[n] for p, c in paths.items()}

@@ -5,9 +5,10 @@ from polympc_torch.basis.basis import (
 from polympc_torch.basis.splines import (
     CubicSpline, fit_cubic_spline, cubic_spline_eval, lagrange_interp,
 )
+from polympc_torch.basis.projection import Projection, project
 from polympc_torch.basis import nodes
 
 __all__ = ["Basis", "Chebyshev", "Legendre", "LegendreGauss",
            "LegendreRadau", "SegmentedBasis", "CubicSpline",
            "fit_cubic_spline", "cubic_spline_eval", "lagrange_interp",
-           "nodes"]
+           "Projection", "project", "nodes"]

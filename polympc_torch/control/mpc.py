@@ -1,9 +1,10 @@
 """User-facing MPC facade — the port of polympc_tpu/control/mpc.py
 (``MPC<OCP, Solver>``, mpc_wrapper.hpp:18-300).
 
-A thin stateful layer over the batch-first SQP: it stores bounds, guesses
-and static data as tensors on its device, and ``solve()`` runs one
-``sqp_solve`` call with one lane, keeping primal and dual state between
+A thin stateful layer over the batch-first solvers: it stores bounds,
+guesses and static data as tensors on its device, and ``solve()`` runs one
+``sqp_solve`` (or, with ``solver="ip"``, ``nlp_ip_solve``) call with one
+lane, keeping primal and dual state between
 calls for warm-started re-solves (mpc_wrapper.hpp:190-205,
 sqp_base.hpp:613-615).  Results come back unbatched, as the JAX facade's
 do.  Node 0 is t0, so the initial condition pins node 0.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from polympc_torch.basis.basis import Chebyshev, SegmentedBasis
+from polympc_torch.nlp.ip import IPNLPSettings, nlp_ip_solve
 from polympc_torch.nlp.sqp import sqp_solve
 from polympc_torch.nlp.types import NLPBounds, SQPSettings
 from polympc_torch.ocp.ocp import OCP
@@ -28,22 +30,31 @@ __all__ = ["MPC"]
 class MPC:
     def __init__(self, ocp: OCP, mesh: SegmentedBasis | None = None,
                  t0: float = 0.0, tf: float = 1.0,
-                 settings: SQPSettings = SQPSettings(hessian="exact"),
+                 settings: SQPSettings | IPNLPSettings =
+                 SQPSettings(hessian="exact"),
                  x_scale=None, u_scale=None, p_scale=None,
                  dtype=torch.float64, solver: str = "sqp",
                  device="cuda"):
-        """solver: "sqp" (SQP + boxADMM, the reference's MPC default); "ip"
-        (the interior-point NLP solver) is not ported yet."""
+        """solver: "sqp" (SQP + boxADMM, the reference's MPC default) or
+        "ip" (the interior point, the reference's Ipopt-backed path,
+        ipopt_interface.hpp:387-495)."""
         if solver not in ("sqp", "ip"):
             raise ValueError("solver must be 'sqp' or 'ip'")
-        if solver == "ip":
-            raise NotImplementedError(
-                "solver='ip': the interior-point NLP solver (nlp/ip.py) is "
-                "not ported yet (ROADMAP.md queue 1 item 5)")
-        if not isinstance(settings, SQPSettings):
+        # settings/solver consistency: only the untouched default
+        # SQPSettings is replaced by IPNLPSettings() for solver="ip";
+        # explicitly tuned settings of the wrong type are an error
+        if solver == "ip" and not isinstance(settings, IPNLPSettings):
+            if settings == SQPSettings(hessian="exact"):
+                settings = IPNLPSettings()
+            else:
+                raise TypeError(
+                    "solver='ip' requires IPNLPSettings; got explicitly "
+                    f"configured {type(settings).__name__}")
+        if solver == "sqp" and not isinstance(settings, SQPSettings):
             raise TypeError(
                 "solver='sqp' requires SQPSettings; got "
                 f"{type(settings).__name__}")
+        self.solver = solver
         self.ocp = ocp
         self.mesh = mesh if mesh is not None else SegmentedBasis(
             Chebyshev(5), 2)
@@ -198,9 +209,15 @@ class MPC:
                            gu=self._gu.repeat(N))
         prm = {"p": self._t(torch.zeros(self.ocp.np_)), "d": self._d,
                "t0": self._t0, "tf": self._tf}
-        sol = sqp_solve(self.tr.nlp, self._z[None], p=prm, bounds=bounds,
-                        lam0=self._lam[None], lam_box0=self._lam_box[None],
-                        settings=self.settings)
+        if self.solver == "ip":
+            sol = nlp_ip_solve(self.tr.nlp, self._z[None], p=prm,
+                               bounds=bounds, lam0=self._lam[None],
+                               settings=self.settings)
+        else:
+            sol = sqp_solve(self.tr.nlp, self._z[None], p=prm,
+                            bounds=bounds, lam0=self._lam[None],
+                            lam_box0=self._lam_box[None],
+                            settings=self.settings)
         sol = sol._replace(**{f: v[0] for f, v in zip(sol._fields, sol)
                               if v is not None})
         self._solution = sol

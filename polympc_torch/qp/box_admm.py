@@ -40,8 +40,8 @@ from polympc_torch.qp.types import QPData, QPSolution, ADMMSettings
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
 
-__all__ = ["box_admm_solve", "classify_constraints", "rho_vector",
-           "penalties", "epoch_route"]
+__all__ = ["box_admm_solve", "admm_solve", "classify_constraints",
+           "rho_vector", "penalties", "epoch_route"]
 
 
 def _inf_norm(v):
@@ -270,9 +270,23 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
     leading lane axis B).
 
     x0, y0, y_box0: optional (B, n) / (B, m) / (B, n) warm starts.
+
+    Gradients flow through the solution by implicit differentiation of the
+    KKT conditions at the converged active set (:class:`_ImplicitQP`, the
+    JAX package's ``custom_vjp``), not by unrolling the iterations.  Only a
+    call where some field of ``qp`` requires grad enters it; every other
+    call runs the solve directly.
     """
     if not settings.validate():
         raise ValueError("invalid ADMM settings")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in qp):
+        out = _ImplicitQP.apply(settings, x0, y0, y_box0, *qp)
+        return QPSolution(*out)
+    return _box_admm_raw(qp, x0, y0, y_box0, settings)
+
+
+def _box_admm_raw(qp: QPData, x0, y0, y_box0,
+                  settings: ADMMSettings) -> QPSolution:
     B, n = qp.h.shape
     m = qp.al.shape[1]
     dt, dev = qp.H.dtype, qp.H.device
@@ -366,3 +380,102 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
                       iters=(S["epoch"] * settings.check_every).to(
                           torch.int32),
                       res_prim=S["rp"], res_dual=S["rd"], rho=rho_final)
+
+
+def _bound_weights(lo, up, dt):
+    """Split a bound cotangent between the lower and the upper bound of a
+    row; an equality row (both active) gives each half, so the cotangent
+    is not counted twice."""
+    lo_f, up_f = lo.to(dt), up.to(dt)
+    denom = torch.clamp(lo_f + up_f, min=1.0)
+    return lo_f / denom, up_f / denom
+
+
+class _ImplicitQP(torch.autograd.Function):
+    """The QP solution map with its implicit-differentiation VJP
+    (OptNet-style; the JAX package's ``_solve_vjp``).
+
+    The forward is the batch-first solve.  The backward fixes each lane's
+    active set at ``tol = 10 eps_abs + 1e-8``; at the solution (x, y, y_box)
+    then solve
+
+        F1 = H x + h + A'y + y_box                     = 0
+        F2_i = act_i (A_i x - b_i) + (1 - act_i) y_i   = 0
+        F3_i = actb_i (x_i - bb_i) + (1 - actb_i) ybox_i = 0,
+
+    so v = J^-T [x_bar; y_bar; ybox_bar] (J regularised by 1e-10 I: the
+    active-set KKT can be singular at degenerate solutions) and every
+    parameter's cotangent is -v' dF/dtheta.  The dense solve is
+    ``torch.linalg.solve``, as ``jnp.linalg.solve`` in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, settings, x0, y0, y_box0, *fields):
+        qp = QPData(*fields)
+        sol = _box_admm_raw(qp, x0, y0, y_box0, settings)
+        ctx.settings = settings
+        ctx.save_for_backward(qp.H, qp.A, qp.al, qp.au, qp.xl, qp.xu,
+                              sol.x, sol.y)
+        ctx.mark_non_differentiable(sol.status, sol.iters, sol.res_prim,
+                                    sol.res_dual, sol.rho)
+        return tuple(sol)
+
+    @staticmethod
+    @full_precision()
+    def backward(ctx, x_bar, y_bar, yb_bar, *_):
+        H, A, al, au, xl, xu, x, y = ctx.saved_tensors
+        B, n = x.shape
+        m = y.shape[1]
+        dt, dev = x.dtype, x.device
+        tol = 10.0 * ctx.settings.eps_abs + 1e-8
+        Ax = _mv(A, x)
+        act_lo = (Ax - al) <= tol
+        act_up = (au - Ax) <= tol
+        actb_lo = (x - xl) <= tol
+        actb_up = (xu - x) <= tol
+        af = (act_lo | act_up).to(dt)
+        abf = (actb_lo | actb_up).to(dt)
+        In = torch.eye(n, dtype=dt, device=dev).expand(B, n, n)
+        zeros = lambda r, c: torch.zeros((B, r, c), dtype=dt, device=dev)
+        J = torch.cat([
+            torch.cat([H, A.transpose(1, 2), In], 2),
+            torch.cat([af[:, :, None] * A, torch.diag_embed(1.0 - af),
+                       zeros(m, n)], 2),
+            torch.cat([torch.diag_embed(abf), zeros(n, m),
+                       torch.diag_embed(1.0 - abf)], 2)], 1)
+        J = J + 1e-10 * torch.eye(2 * n + m, dtype=dt, device=dev)
+        rhs = torch.cat([x_bar, y_bar, yb_bar], 1)
+        v = torch.linalg.solve(J.transpose(1, 2), rhs)
+        v1, v2, v3 = v[:, :n], v[:, n:n + m], v[:, n + m:]
+        outer = lambda a, b: a[:, :, None] * b[:, None, :]
+        H_bar = -outer(v1, x)
+        # H enters the QP only through its symmetric part
+        H_bar = 0.5 * (H_bar + H_bar.transpose(1, 2))
+        # A_ij enters F1_j with weight y_i and F2_i with act_i x_j
+        A_bar = -outer(y, v1) - outer(af * v2, x)
+        w_lo, w_up = _bound_weights(act_lo, act_up, dt)
+        wb_lo, wb_up = _bound_weights(actb_lo, actb_up, dt)
+        return (None, None, None, None, H_bar, -v1, A_bar, v2 * w_lo,
+                v2 * w_up, v3 * wb_lo, v3 * wb_up)
+
+
+def admm_solve(qp: QPData, x0=None, y0=None,
+               settings: ADMMSettings = ADMMSettings()) -> QPSolution:
+    """The standard OSQP splitting: the box rows stacked into A as [I; A]
+    (ref: admm.hpp:32-38 ``construct_A``), so each lane's QP has m + n rows
+    and no box, solved by :func:`box_admm_solve` (its epochs through
+    :func:`epoch_route`).  For parity and testing; the box-split solver is
+    the production path.  y0 (B, m) warm-starts the general rows' duals."""
+    B, n = qp.h.shape
+    dt, dev = qp.H.dtype, qp.H.device
+    eye = torch.eye(n, dtype=dt, device=dev).expand(B, n, n)
+    inf = torch.full((B, n), float("inf"), dtype=dt, device=dev)
+    qp2 = QPData(H=qp.H, h=qp.h, A=torch.cat([eye, qp.A], 1),
+                 al=torch.cat([qp.xl, qp.al], 1),
+                 au=torch.cat([qp.xu, qp.au], 1), xl=-inf, xu=inf)
+    y0_2 = None if y0 is None else torch.cat(
+        [torch.zeros((B, n), dtype=dt, device=dev), y0.to(dt)], 1)
+    sol = box_admm_solve(qp2, x0=x0, y0=y0_2, settings=settings)
+    return QPSolution(x=sol.x, y=sol.y[:, n:], y_box=sol.y[:, :n],
+                      status=sol.status, iters=sol.iters,
+                      res_prim=sol.res_prim, res_dual=sol.res_dual,
+                      rho=sol.rho[:, n:])

@@ -53,3 +53,24 @@ def test_segmented_basis_matches_jax(order, segments):
                                a.time_nodes(0.5, 2.0), **TOL)
     np.testing.assert_allclose(b.interp_matrix([0.1, 0.7], 0.0, 1.0),
                                a.interp_matrix([0.1, 0.7], 0.0, 1.0), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["Chebyshev", "Legendre"])
+def test_projection_matches_jax(kind):
+    """tests/test_basis.py::test_projection's case: the coefficients and the
+    numpy evaluation equal the JAX package's to 1e-12; the torch Clenshaw
+    evaluation agrees with them to 1e-12 and with f to the test's 1e-6."""
+    from polympc_tpu.basis.projection import project as jproject
+    from polympc_torch.basis import project
+    f = lambda t: np.exp(-t) * np.sin(3 * t)
+    pj = jproject(f, getattr(jb, kind)(12), a=0.0, b=2.0)
+    pt = project(f, getattr(tb, kind)(12), a=0.0, b=2.0)
+    assert pt.kind == pj.kind
+    np.testing.assert_allclose(pt.coeffs, pj.coeffs, **TOL)
+    tq = np.linspace(0.0, 2.0, 33)
+    np.testing.assert_allclose(pt(tq), pj(tq), **TOL)
+    assert float(pt(0.7)) == pytest.approx(float(pj(0.7)), abs=1e-12)
+    ev = pt.eval(torch.tensor(tq, dtype=torch.float64))
+    assert ev.dtype == torch.float64 and ev.shape == (33,)
+    np.testing.assert_allclose(ev.numpy(), pj(tq), **TOL)
+    np.testing.assert_allclose(ev.numpy(), f(tq), atol=1e-6)

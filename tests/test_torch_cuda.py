@@ -497,3 +497,79 @@ def test_mpc_on_the_card(dev):
         assert mpc.solution_x().device.type == device
         sols.append(mpc.solution_x().cpu())
     torch.testing.assert_close(sols[0], sols[1], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_qp_solvers_on_the_card(dev):
+    """The solver layer's QP entry points on the card at the spline QP
+    (B=64): the interior point (float64) equals its CPU run per lane in
+    status and iterations and to 1e-9 in x; admm_solve in float32 (the box
+    stacked into A, K=79) launches the dense epoch kernel and lands within
+    1e-3 of the interior point; the active set returns to the card; the
+    VJP's float32 forward through the kernel gives cotangents within 1e-3
+    (median) of the float64 CPU ones."""
+    from polympc_torch import solvers_point as sp
+    from polympc_torch.headline_table import spline_batch, spline_settings
+    from polympc_torch.qp import (
+        QPData, admm_solve, box_admm_solve, qp_active_set_solve,
+        qp_ip_solve)
+    qp = spline_batch(64, dev, torch.float64)[1]
+    ip = qp_ip_solve(qp)
+    ip_cpu = qp_ip_solve(QPData(*(t.cpu() for t in qp)))
+    assert torch.equal(ip.status.cpu(), ip_cpu.status)
+    assert torch.equal(ip.iters.cpu(), ip_cpu.iters)
+    torch.testing.assert_close(ip.x.cpu(), ip_cpu.x, rtol=0, atol=1e-9)
+    _build.reset_launches()
+    ad = admm_solve(QPData(*(t.float() for t in qp)),
+                    settings=spline_settings("kernel"))
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["admm_epoch"] > 0
+    assert (ad.status == 1).all()
+    err = (ad.x.double() - ip.x).abs().amax(1) / (1 + ip.x.abs().amax(1))
+    assert err.max().item() <= 1e-3
+    act = qp_active_set_solve(QPData(*(t[:8] for t in qp)))
+    assert act.x.device.type == "cuda" and (act.status == 1).all()
+    torch.testing.assert_close(act.x, ip.x[:8], rtol=0, atol=1e-6)
+    grads = []
+    for q, s in ((QPData(*(t.float() for t in qp)), "kernel"),
+                 (QPData(*(t.cpu() for t in qp)), "lu")):
+        wrt = [getattr(q, f).clone().requires_grad_(True)
+               for f in sp.VJP_FIELDS]
+        q = q._replace(**dict(zip(sp.VJP_FIELDS, wrt)))
+        w = torch.as_tensor(sp.vjp_weights(64, 32), dtype=q.h.dtype,
+                            device=q.h.device)
+        sol = box_admm_solve(q, settings=spline_settings(s))
+        g = torch.autograd.grad((w * sol.x).sum(), wrt)
+        grads.append(torch.cat([t.detach().double().cpu() for t in g], 1))
+    rel = (grads[0] - grads[1]).abs().amax(1) / \
+        grads[1].abs().amax(1).clamp(min=1e-30)
+    assert rel.median().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_nlp_ip_and_lqr_on_the_card(dev):
+    """The kite interior point (two lanes, float64) and the batched LQR on
+    the card equal their CPU runs: the same statuses and iteration counts,
+    cost to 1e-8, P to 1e-9."""
+    from polympc_torch import solvers_point as sp
+    from polympc_torch.control import lqr
+    from polympc_torch.headline import bench_x0s
+    from polympc_torch.nlp import nlp_ip_solve
+    out = []
+    for device in ("cuda", "cpu"):
+        tr, bounds, prm, _ = kite_problem(device, torch.float64)
+        x0 = torch.as_tensor(bench_x0s(512)[:2], dtype=torch.float64,
+                             device=device)
+        z0, bnd = sp.kite_ip_start(tr, bounds, x0)
+        sol = nlp_ip_solve(tr.nlp, z0, p=prm, bounds=bnd)
+        A, B, Q, R = (torch.as_tensor(a, device=device)
+                      for a in sp.quadrotor())
+        As = torch.as_tensor(sp.quadrotor_batch(4), device=device)
+        K, P = lqr(As, B, Q, R)
+        out.append((sol, P.cpu()))
+    (s_gpu, P_gpu), (s_cpu, P_cpu) = out
+    assert torch.equal(s_gpu.status.cpu(), s_cpu.status)
+    assert torch.equal(s_gpu.iters.cpu(), s_cpu.iters)
+    torch.testing.assert_close(s_gpu.cost.cpu(), s_cpu.cost, rtol=1e-8,
+                               atol=0)
+    torch.testing.assert_close(P_gpu, P_cpu, rtol=1e-9, atol=1e-9)

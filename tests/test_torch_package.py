@@ -3,6 +3,9 @@
   * no file of the port, and not chip_smoke.py, trace_port.py,
     kernel_ab.py or ldlt_solve_orders.py, imports JAX or the JAX package
     (an AST scan): the card's machine has no JAX;
+  * nor does one name a path under the JAX package in a string literal
+    other than a docstring (a file it could read, such as the JAX
+    package's native sources), a ``file.py:line`` citation apart;
   * the committed JAX reference of the certified kite batch loads, and its
     x0s are bench.py's;
   * the port imports and runs its small pieces where there is no nvcc and
@@ -11,6 +14,7 @@
 """
 import ast
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -56,6 +60,51 @@ def test_port_never_imports_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+# a path component "polympc_tpu" (a directory to join or read from), and
+# the one form that names it without being a path to open: a citation
+# "polympc_tpu/<file>.py:<line>" (chip_smoke.py's "replaces" keys)
+_JAX_PATH = re.compile(r"(^|[/\\])polympc_tpu([/\\]|$)")
+_CITATION = re.compile(r"^polympc_tpu/[\w/]+\.py:\d+$")
+
+
+def _string_literals(path):
+    """(line, text) of every string constant of a file that is not a
+    docstring, the constant parts of f-strings included."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if (isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                              ast.AsyncFunctionDef)) and node.body
+                and isinstance(node.body[0], ast.Expr)
+                and isinstance(node.body[0].value, ast.Constant)):
+            docs.add(id(node.body[0].value))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            yield node.lineno, node.value
+
+
+def _names_jax_path(text):
+    return bool(_JAX_PATH.search(text)) and not _CITATION.match(text)
+
+
+def test_path_scan_catches_what_it_must():
+    for bad in ("polympc_tpu", "polympc_tpu/native/qpmad.cpp",
+                "../polympc_tpu/native", "x/polympc_tpu/ops"):
+        assert _names_jax_path(bad), bad
+    for fine in ("polympc_tpu/ops/ldlt.py:355", "polympc_torch/native",
+                 "the JAX package (polympc_tpu.nlp.ip)"):
+        assert not _names_jax_path(fine), fine
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_never_names_a_jax_package_path(path):
+    bad = [(line, text[:60]) for line, text in _string_literals(path)
+           if _names_jax_path(text)]
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
 def _bench_x0s(B):
     """bench.py's draw, as written there (bench.py:97-104)."""
     rng = np.random.default_rng(0)
@@ -83,6 +132,27 @@ def test_reference_record_loads_with_bench_x0s():
     assert ref["certified"].sum() >= B - 10
     assert set(np.unique(ref["status"])) <= {1, 2}
     assert 1 <= ref["iters"].min() and ref["iters"].max() <= 9
+
+
+def test_solvers_record_matches_the_port_on_its_first_lanes():
+    """tests/data/solvers_jax_cpu.npz (the JAX package's record of the
+    solver layer's card paths) loads, stays small, holds bench's x0s, and
+    its QP lanes are the port's own on the CPU: the interior point's x to
+    1e-9 and the same iteration counts on the first 8 lanes."""
+    from polympc_torch.headline import bench_x0s
+    from polympc_torch.headline_table import spline_batch
+    from polympc_torch.qp import QPData, qp_ip_solve
+    path = ROOT / "tests" / "data" / "solvers_jax_cpu.npz"
+    assert path.stat().st_size < 1024 * 1024
+    rec = np.load(path)
+    np.testing.assert_array_equal(rec["kite_x0s"], bench_x0s(512))
+    assert rec["kite_status"].shape == rec["kite_cost"].shape == (512,)
+    assert rec["ip_status"].shape == rec["admm_status"].shape == (4096,)
+    qp = spline_batch(8, "cpu", torch.float64)[1]
+    sol = qp_ip_solve(qp)
+    np.testing.assert_array_equal(sol.iters.numpy(), rec["ip_iters"][:8])
+    np.testing.assert_allclose(sol.x.numpy(), rec["ip_x"][:8], rtol=0,
+                               atol=1e-9)
 
 
 def test_status_codes_match_jax():
@@ -228,5 +298,10 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.nlp.hessian.block_hessian_identity",
                  "polympc_torch.cstr_point.cstr_problem",
                  "polympc_torch.cstr_point.batch_fn",
-                 "polympc_torch.cstr_point.run"):
+                 "polympc_torch.cstr_point.run",
+                 "polympc_torch.solvers_point.kite_ip",
+                 "polympc_torch.solvers_point.mpc_ip",
+                 "polympc_torch.solvers_point.qp_solvers",
+                 "polympc_torch.solvers_point.lqr_batch",
+                 "polympc_torch.solvers_point.nlp_extras"):
         assert qual in seen, qual

@@ -37,7 +37,7 @@ from polympc_tpu.qp.box_admm import box_admm_solve as j_box  # noqa: E402
 from polympc_tpu.qp.types import QPData as JQPData  # noqa: E402
 from polympc_torch.control import MPC  # noqa: E402
 from polympc_torch.models import robot_ocp  # noqa: E402
-from polympc_torch.nlp import NLP, NLPBounds, SQPSettings  # noqa: E402
+from polympc_torch.nlp import IPNLPSettings, NLP, NLPBounds, SQPSettings  # noqa: E402,E501
 from polympc_torch.nlp import regularize  # noqa: E402
 from polympc_torch.nlp.sqp import sqp_solve  # noqa: E402
 from polympc_torch.parallel import make_batch_solver  # noqa: E402
@@ -165,11 +165,16 @@ def test_batch_solver_diagnostics_match_jax(kite_batch):
 
 def test_sqp_refuses_unported_modes():
     """Every Hessian mode and line search of the JAX package runs in the
-    port; what it refuses is the interior-point NLP solver behind
-    ``MPC(solver="ip")``, settings the JAX package refuses too, and
-    block-BFGS on an NLP without a block structure."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        MPC(robot_ocp(), solver="ip", device="cpu")
+    port, and ``MPC(solver="ip")`` runs the interior point; what it
+    refuses is what the JAX package refuses too (explicitly tuned settings
+    of the other solver's type, unknown modes) and block-BFGS on an NLP
+    without a block structure."""
+    with pytest.raises(TypeError, match="requires IPNLPSettings"):
+        MPC(robot_ocp(), solver="ip", settings=SQPSettings(hessian="bfgs"),
+            device="cpu")
+    with pytest.raises(TypeError, match="requires SQPSettings"):
+        MPC(robot_ocp(), solver="sqp", settings=IPNLPSettings(),
+            device="cpu")
     with pytest.raises(ValueError, match="solver must be"):
         MPC(robot_ocp(), solver="qp", device="cpu")
     with pytest.raises(TypeError, match="requires SQPSettings"):

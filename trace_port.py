@@ -2,9 +2,9 @@
 """Where the time goes in the port's batched paths, on one NVIDIA card.
 
     python3 trace_port.py [kite] [spline] [frame] [race_car] [dist_kite_s8]
-                          [cstr]
+                          [cstr] [kite_ip]
 
-Each named path (all six by default) is built at the widths that
+Each named path (all seven by default) is built at the widths that
 chip_smoke.py drives: bench's certified kite batch (B=512), the spline QP
 batch (B=4096), the frame-transform batch (B=4096), the certified
 race-car batch (B=512), the certified horizon-partitioned kite batch
@@ -14,7 +14,11 @@ every inner QP runs to its 400-iteration cap, so each iteration does the
 same work, while the whole 60-iteration batch under the profiler outlasts
 15 minutes; and the certified CSTR batch (B=256,
 polympc_torch/cstr_point.py), cut to its first CSTR_TRACE_ITERS SQP
-iterations (its lanes run 7 to 150, 59 on average in the JAX record).  Its timed unit runs once to warm up, once timed on the host
+iterations (its lanes run 7 to 150, 59 on average in the JAX record); and
+bench's kite batch through the float64 interior point (B=512,
+polympc_torch/solvers_point.py), cut to its first KITE_IP_TRACE_ITERS
+iterations (its lanes run 22 to 100, 52 on average in the JAX record).
+Its timed unit runs once to warm up, once timed on the host
 clock (ending in torch.cuda.synchronize()), then once under torch.profiler
 with CPU and CUDA activities.  Per path one JSON line:
 
@@ -39,12 +43,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DIST_TRACE_ITERS = 3
 CSTR_TRACE_ITERS = 10
+KITE_IP_TRACE_ITERS = 10
 
 
 def units(dev):
     """name -> a function of no arguments running one batched unit."""
     import torch
     from polympc_torch import cstr_point, dist_point, headline
+    from polympc_torch import solvers_point
+    from polympc_torch.nlp import IPNLPSettings, nlp_ip_solve
     from polympc_torch import headline_table as ht
     from polympc_torch.control.path import project_on_path_newton
     from polympc_torch.qp import box_admm_solve
@@ -63,12 +70,22 @@ def units(dev):
         tr, bounds, _, solve, sol = ht.race_car_cold(dev)
         return ht.race_car_batch_fn(tr, bounds, solve, sol, 512)
 
+    def kite_ip():
+        tr, bounds, prm, _ = headline.kite_problem(dev, torch.float64)
+        x0 = torch.as_tensor(headline.bench_x0s(512), dtype=torch.float64,
+                             device=dev)
+        z0, bnd = solvers_point.kite_ip_start(tr, bounds, x0)
+        s = IPNLPSettings(max_iter=KITE_IP_TRACE_ITERS)
+        return lambda: nlp_ip_solve(tr.nlp, z0, p=prm, bounds=bnd,
+                                    settings=s)
+
     return {"kite": lambda: headline.batch_fn(512, dev), "spline": spline,
             "frame": frame, "race_car": race_car,
             "dist_kite_s8": lambda: dist_point.batch_fn(
                 128, dev, max_iter=DIST_TRACE_ITERS),
             "cstr": lambda: cstr_point.batch_fn(
-                256, dev, max_iter=CSTR_TRACE_ITERS)}
+                256, dev, max_iter=CSTR_TRACE_ITERS),
+            "kite_ip": kite_ip}
 
 
 def busy_ms(intervals):
