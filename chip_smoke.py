@@ -25,7 +25,9 @@ Phases, each printing its own lines and raising on failure:
      shape the BBT epoch on its first epoch, and the epoch's fit rule in
      Python (bbt_kernel_fits) against the kernel's own on seven
      structures; the dense epoch also at admm_solve's first epoch of the
-     stacked spline QP (B=4096, n=32, m=47, K=79);
+     stacked spline QP (B=4096, n=32, m=47, K=79) and at the MS kite
+     batch's first epoch (B=512, n=75, m=50, K=125), and the LDL^T
+     factor-solve and solve at K=125 on diagonally dominant matrices;
   4. main paths, each with the launch counts set to 0 just before it and
      read just after:
        kite: bench.py's certified kite batch (B=512), one warm-up then the
@@ -66,6 +68,16 @@ Phases, each printing its own lines and raising on failure:
          B=4096 linearisation points, against scipy (float64, no kernel);
        nlp_extras: psarc, the trust region, projected gradient and a
          projection, one float64 call each with the JAX tests' oracles;
+       slice 4 (polympc_torch/ocp_extras_point.py) against the JAX
+       package's record (tests/data/ocp_extras_jax_cpu.npz):
+       kite_ms_b512: bench's kite by multiple shooting (B=512, fp32 SQP
+         with its inner QPs on the dense epoch kernel at K=125, bench's
+         fp64 certify), a B=8 warm-up then the median of 3 batches; after
+         the path, the LDL^T kernels on its certify matrices (K=125);
+       ocp_extras: the robot by multiple shooting and with soft defects,
+         Radau against Lobatto on a stiff OCP, a trajectory-hook rate
+         bound, identify, and the adaptive and pseudospectral integrators,
+         one float64 call each with the JAX tests' oracles;
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -88,6 +100,8 @@ DIST_REFERENCE = os.path.join(ROOT, "tests", "data",
                               "dist_kite_s8_jax_cpu.npz")
 SOLVERS_REFERENCE = os.path.join(ROOT, "tests", "data",
                                  "solvers_jax_cpu.npz")
+OCP_EXTRAS_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                    "ocp_extras_jax_cpu.npz")
 
 # Tolerances of the kernel-vs-plain phase.
 # The epoch runs 50 over-relaxed ADMM iterations in float32; the kernel and
@@ -185,6 +199,13 @@ VJP_MEDIAN_RTOL = 1e-3
 LQR_RTOL, LQR_ATOL = 1e-5, 1e-7
 LQR_RES_TOL = 1e-8
 LQR_SCIPY_LANES = 64
+# The kite by multiple shooting (B=512, float32 SQP, float64 certify)
+# against the JAX record of its "lu" route: certified and SOLVED counts at
+# least the record's less 10 (2% of B), as for bench's kite.  The
+# ocp_extras cases (float64) against the record: each JAX test's oracle,
+# and the statuses equal and the costs within OCP_EXTRAS_COST_RTOL.
+KITE_MS_SLACK = 10
+OCP_EXTRAS_COST_RTOL = 1e-6
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -319,20 +340,41 @@ def check_tight(name, kernel, plain, args, rest, rtol):
     return rel
 
 
+def residual_gate(rk, rp):
+    """The residual test of the LDL^T kernels on refine matrices, lane by
+    lane: (failing lanes, live lanes).  A lane is live where the plain
+    version's residual is at most LDLT_GROWTH, and fails where the
+    kernel's exceeds max(LDLT_RES_RATIO x plain, LDLT_RES_FLOOR)."""
+    import torch
+    live = rp <= LDLT_GROWTH
+    return live & ~(rk <= torch.clamp(LDLT_RES_RATIO * rp,
+                                      min=LDLT_RES_FLOOR)), live
+
+
 def check_residuals(name, rk, rp):
     """The residual test of the LDL^T kernels on refine matrices."""
     import torch
     if not torch.isfinite(rk[torch.isfinite(rp)]).all():
         raise RuntimeError(f"{name}: non-finite kernel residual where the "
                            "plain version's is finite")
-    live = rp <= LDLT_GROWTH
-    bad = live & ~(rk <= torch.clamp(LDLT_RES_RATIO * rp,
-                                     min=LDLT_RES_FLOOR))
+    bad, live = residual_gate(rk, rp)
     if bad.any():
         raise RuntimeError(
             f"{name}: {int(bad.sum())} of {int(live.sum())} lanes with kernel "
             f"residual > max({LDLT_RES_RATIO} x plain, {LDLT_RES_FLOOR}); "
-            f"worst kernel {rk[bad].max().item():.3e}")
+            f"worst kernel {rk[bad].max().item():.3e}, lanes "
+            f"{bad.nonzero().flatten().tolist()[:20]}")
+
+
+def check_mirror(name, x, x_mirror):
+    """The kernel's solution equal to the mirror of its own algorithm bit
+    for bit, on every lane."""
+    import torch
+    if not torch.equal(x, x_mirror):
+        bad = (x != x_mirror).any(1).nonzero().flatten().tolist()
+        raise RuntimeError(f"{name}: the kernel's solution differs from "
+                           f"panel_solve_mirror on lanes {bad[:20]}")
+    return True
 
 
 def random_epoch(st, B, rng, dev):
@@ -357,15 +399,13 @@ def random_epoch(st, B, rng, dev):
 def phase_parity(ref, dev):
     import torch
     from polympc_torch.headline import kite_problem
-    from polympc_torch.nlp.hessian import regularize
+    from polympc_torch.nlp import sqp
     from polympc_torch.ops import bbt_kernel as bk
     from polympc_torch.ops import ldlt
     from polympc_torch.ops.structure import (
         bbt_structure, gather_blocks, permute_vec, random_bbt_kkt,
         unpermute_vec)
     from polympc_torch.parallel import pin_initial_state
-    from polympc_torch.qp.box_admm import _build_kkt, penalties
-    from polympc_torch.qp.types import QPData
 
     rng = np.random.default_rng(7)
     tr, bounds, prm, settings = kite_problem(dev)
@@ -379,20 +419,9 @@ def phase_parity(ref, dev):
     bnd, x0sc = pin_initial_state(tr, bounds, x0)
     z0 = tr.rollout_guess(x0, prm)
     z0[:, :nx] = x0sc
-    z0 = torch.clamp(z0, min=bnd.lbx, max=bnd.ubx)
-    lam0 = torch.zeros((B, nlp.m), device=dev)
-    H = regularize(nlp.lag_hessian(z0, lam0, prm), settings.reg,
-                   settings.reg_eps)
-    c = nlp.eq(z0, prm)
-    qp = QPData(H=H, h=nlp.cost_grad(z0, prm), A=nlp.eq_jac(z0, prm),
-                al=-c, au=-c, xl=bnd.lbx - z0, xu=bnd.ubx - z0)
-    rho, rb = penalties(torch.full((B,), qs.rho, device=dev), qp, qs)
-    kkt = _build_kkt(qp, rho, rb, qs.sigma)
-    zeros = torch.zeros_like
-    # the first epoch's state: x = q = 0, z = A x = 0, y = lam = 0, yb = 0
-    kite = bk.prepare_epoch(kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb,
-                            zeros(z0), zeros(c), zeros(z0), lam0, zeros(z0),
-                            st)
+    first = sqp.first_epoch(nlp, z0, prm, bnd, settings=settings)
+    kkt = first[0]
+    kite = bk.prepare_epoch(*first, st)
     ep = (qs.sigma, qs.alpha, qs.check_every)
     err = check_against_f64("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
                             kite, (st, *ep))
@@ -721,20 +750,14 @@ def phase_parity_dense(dev, results):
     from polympc_torch.ops import _build
     from polympc_torch.ops import admm_epoch as ae
     from polympc_torch.ops import ldlt
-    from polympc_torch.qp.box_admm import _build_kkt, penalties
-    from polympc_torch.qp.ruiz import ruiz_equilibrate
+    from polympc_torch.qp.box_admm import first_epoch
     from polympc_torch.qp.types import QPData
     rng = np.random.default_rng(11)
     qs = ht.spline_settings()
     _, big = ht.spline_batch(4096, dev)
-    qp, _ = ruiz_equilibrate(big, qs.equil_iters)
-    B, n = qp.h.shape
-    m = qp.al.shape[1]
-    rho, rb = penalties(torch.full((B,), qs.rho, device=dev), qp, qs)
-    kkt = _build_kkt(qp, rho, rb, qs.sigma)
-    zero = lambda k: torch.zeros((B, k), device=dev)
-    spline = (kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb, zero(n),
-              zero(m), zero(n), zero(m), zero(n))
+    spline = first_epoch(big, settings=qs)
+    B, n = big.h.shape
+    m = big.al.shape[1]
     kw = dict(sigma=qs.sigma, alpha=qs.alpha, iters=qs.check_every)
     kern, plain = epoch_fns(**kw)
     err = check_against_f64("admm_epoch", kern, plain, spline, ())
@@ -759,15 +782,11 @@ def phase_parity_dense(dev, results):
     # the qp_solvers path runs it
     eye = torch.eye(n, device=dev).expand(B, n, n)
     inf = torch.full((B, n), float("inf"), device=dev)
-    sq, _ = ruiz_equilibrate(
+    stacked = first_epoch(
         QPData(big.H, big.h, torch.cat([eye, big.A], 1),
                torch.cat([big.xl, big.al], 1),
-               torch.cat([big.xu, big.au], 1), -inf, inf), qs.equil_iters)
-    m2 = sq.al.shape[1]
-    rho2, rb2 = penalties(torch.full((B,), qs.rho, device=dev), sq, qs)
-    stacked = (_build_kkt(sq, rho2, rb2, qs.sigma), sq.h, sq.al, sq.au,
-               sq.xl, sq.xu, rho2, rb2, zero(n), zero(m2), zero(n),
-               zero(m2), zero(n))
+               torch.cat([big.xu, big.au], 1), -inf, inf), settings=qs)
+    m2 = m + n
     k79 = {**check_against_f64("admm_epoch (stacked)", kern, plain,
                                stacked, ()),
            **timing(lambda: kern(*stacked), lambda: plain(*stacked), None,
@@ -794,40 +813,25 @@ def phase_parity_dense(dev, results):
 
 
 def cstr_first_epoch(x0s, dev):
-    """The CSTR batch's first boxADMM epoch as the path runs it: the first
-    SQP iterate (the transcription's guess with each lane's x0 pinned,
-    zero multipliers), its QP Ruiz-equilibrated as ``box_admm_solve``
-    does, x = z = q = y = yb = 0; returns (settings.qp, epoch inputs)."""
+    """The CSTR batch's first boxADMM epoch as the path runs it
+    (``nlp.sqp.first_epoch``: the transcription's guess with each lane's
+    x0 pinned, zero multipliers, the QP Ruiz-equilibrated as
+    ``box_admm_solve`` does); returns (settings.qp, epoch inputs)."""
     import torch
     from polympc_torch import cstr_point as cp
-    from polympc_torch.nlp.hessian import regularize
+    from polympc_torch.nlp import sqp
     from polympc_torch.ops import bbt_kernel as bk
     from polympc_torch.parallel import pin_initial_state
-    from polympc_torch.qp.box_admm import _build_kkt, penalties
-    from polympc_torch.qp.ruiz import ruiz_equilibrate
-    from polympc_torch.qp.types import QPData
     tr, bounds, prm, settings = cp.cstr_problem(dev)
-    nlp, nx = tr.nlp, tr.ocp.nx
     x0 = torch.as_tensor(x0s, dtype=torch.float32, device=dev)
-    B = x0.shape[0]
     bnd, x0sc = pin_initial_state(tr, bounds, x0)
-    z = tr.initial_guess(dtype=torch.float32, device=dev)[None].repeat(B, 1)
-    z[:, :nx] = x0sc
-    z = torch.clamp(z, min=bnd.lbx, max=bnd.ubx)
-    lam = torch.zeros((B, nlp.m), device=dev)
-    c = nlp.eq(z, prm)
-    qp = QPData(H=regularize(nlp.lag_hessian(z, lam, prm), settings.reg,
-                             settings.reg_eps),
-                h=nlp.cost_grad(z, prm), A=nlp.eq_jac(z, prm), al=-c, au=-c,
-                xl=bnd.lbx - z, xu=bnd.ubx - z)
+    z = tr.initial_guess(dtype=torch.float32, device=dev)[None].repeat(
+        x0.shape[0], 1)
+    z[:, :tr.ocp.nx] = x0sc
     qs = settings.qp
-    qp, _ = ruiz_equilibrate(qp, qs.equil_iters)
-    rho, rb = penalties(torch.full((B,), qs.rho, device=dev), qp, qs)
-    kkt = _build_kkt(qp, rho, rb, qs.sigma)
-    zeros = torch.zeros_like
-    return qs, bk.prepare_epoch(kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho,
-                                rb, zeros(z), zeros(c), zeros(z), lam,
-                                zeros(z), qs.structure)
+    return qs, bk.prepare_epoch(
+        *sqp.first_epoch(tr.nlp, z, prm, bnd, settings=settings),
+        qs.structure)
 
 
 def check_bbt_fit_rule():
@@ -939,12 +943,10 @@ def race_car_inputs(dev):
     Newton-KKT matrices (K=165) at the batch's fp32 solution."""
     import torch
     from polympc_torch import headline_table as ht
-    from polympc_torch.nlp.hessian import regularize
+    from polympc_torch.nlp import sqp
     from polympc_torch.nlp.refine import newton_system
     from polympc_torch.ops import bbt_kernel as bk
     from polympc_torch.parallel import pin_initial_state
-    from polympc_torch.qp.box_admm import _build_kkt, penalties
-    from polympc_torch.qp.types import QPData
     tr, bounds, prm, solve, sol = ht.race_car_cold(dev)
     warm = ht.race_car_problem(dev)[4]
     nlp, nx = tr.nlp, tr.ocp.nx
@@ -955,17 +957,9 @@ def race_car_inputs(dev):
     z[:, :nx] = x0sc
     lam, lam_box = sol.lam.expand(B, -1), sol.lam_box.expand(B, -1)
     qs = warm.qp
-    c = nlp.eq(z, prm)
-    qp = QPData(H=regularize(nlp.lag_hessian(z, lam, prm), warm.reg,
-                             warm.reg_eps),
-                h=nlp.cost_grad(z, prm), A=nlp.eq_jac(z, prm), al=-c, au=-c,
-                xl=bnd.lbx - z, xu=bnd.ubx - z)
-    rho, rb = penalties(torch.full((B,), qs.rho, device=dev), qp, qs)
-    kkt = _build_kkt(qp, rho, rb, qs.sigma)
-    zeros = torch.zeros_like
-    epoch = bk.prepare_epoch(kkt, qp.h, qp.al, qp.au, qp.xl, qp.xu, rho, rb,
-                             zeros(z), zeros(c), zeros(z), lam, lam_box,
-                             qs.structure)
+    epoch = bk.prepare_epoch(
+        *sqp.first_epoch(nlp, z, prm, bnd, lam, lam_box, settings=warm),
+        qs.structure)
     sols = solve(x0s, sol.x.expand(B, -1), lam, lam_box)
     prm64 = tr.params(d=[15.0], t0=0.0, tf=2.0, dtype=torch.float64,
                       device=dev)
@@ -1025,9 +1019,14 @@ def phase_parity_race_car(dev, results):
                       f"K={K}: {out[name]}")
 
 
-def refine_checks(Ms, M32, r32):
+def refine_checks(Ms, M32, r32, fatal=True):
     """The three LDL^T kernels on certify Newton matrices: each against its
-    plain version through the residual test, with their times."""
+    plain version through the residual test and against the mirror of the
+    kernels' algorithm bit for bit, with their times.  ``fatal=False``
+    (the MS kite's certify, whose failing lane stands in ROADMAP queue 3)
+    runs the residual test on every lane and reports the lanes that fail
+    it, each with the residual of the float64 solve on the same float32
+    factor, instead of raising; every other check raises either way."""
     import torch
     from polympc_torch.ops import ldlt
     B, K = r32.shape
@@ -1037,11 +1036,35 @@ def refine_checks(Ms, M32, r32):
         ("ldlt_factor", "ldlt_factor_solve", "ldlt_solve"))}
     xk, _, _ = ldlt.ldlt_factor_solve(M32, r32)
     xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M32, r32)
+    xm = ldlt.panel_solve_mirror(Fp, dp, r32)
     sync()
     rk, rp = rel_residual(Ms, xk, rs), rel_residual(Ms, xp, rs)
-    check_residuals("ldlt_factor_solve", rk, rp)
+
+    def gate(name, rk, rp):
+        if fatal:
+            check_residuals(name, rk, rp)
+            return {}
+        if not torch.isfinite(rk[torch.isfinite(rp)]).all():
+            raise RuntimeError(f"{name}: non-finite kernel residual where "
+                               "the plain version's is finite")
+        bad, live = residual_gate(rk, rp)
+        lanes = bad.nonzero().flatten().tolist()
+        if lanes:
+            r64 = rel_residual(Ms, ldlt.ldlt_solve_plain(
+                Fp.double(), dp.double(), rs), rs)
+            say("GATE FAILED", f"{name}: {len(lanes)} of {int(live.sum())} "
+                               f"lanes with kernel residual > "
+                               f"max({LDLT_RES_RATIO} x plain, "
+                               f"{LDLT_RES_FLOOR}): lanes {lanes[:20]}")
+        return {"gate_failed_lanes": {
+            int(i): {"kernel": rk[i].item(), "plain": rp[i].item(),
+                     "float64_solve_on_the_factor": r64[i].item()}
+            for i in lanes[:20]}}
+
+    held = gate("ldlt_factor_solve", rk, rp)
     out["ldlt_factor_solve"] = {
-        "max_abs_err": (xk - xp).abs().max().item(),
+        "max_abs_err": (xk - xp).abs().max().item(), **held,
+        "equals_mirror": check_mirror("ldlt_factor_solve", xk, xm),
         "res_kernel_max": rk.max().item(), "res_plain_max": rp.max().item(),
         "growth_lanes": int((rp > LDLT_GROWTH).sum()),
         **timing(lambda: ldlt.ldlt_factor_solve(M32, r32),
@@ -1054,10 +1077,11 @@ def refine_checks(Ms, M32, r32):
     sp = ldlt.ldlt_solve_plain(Fp, dp, r32)
     sync()
     rk, rp = rel_residual(Ms, sk, rs), rel_residual(Ms, sp, rs)
-    check_residuals("ldlt_solve", rk, rp)
+    held = gate("ldlt_solve", rk, rp)
     ldl_solve = ldl_solve_library(Fp, dp, r32, sp)
     out["ldlt_solve"] = {
-        "max_abs_err": (sk - sp).abs().max().item(),
+        "max_abs_err": (sk - sp).abs().max().item(), **held,
+        "equals_mirror": check_mirror("ldlt_solve", sk, xm),
         "res_kernel_max": rk.max().item(), "res_plain_max": rp.max().item(),
         "growth_lanes": int((rp > LDLT_GROWTH).sum()),
         **timing(lambda: ldlt.ldlt_solve(Fp, dp, r32),
@@ -1081,9 +1105,10 @@ def refine_checks(Ms, M32, r32):
     fk = ldlt.ldlt_solve(Fk, dk, r32)
     sync()
     rk = rel_residual(Ms, fk, rs)
-    check_residuals("ldlt_factor", rk, rp)
+    held = gate("ldlt_factor", rk, rp)
     out["ldlt_factor"] = {
-        **err, "res_kernel_max": rk.max().item(),
+        **err, **held, "equals_mirror": check_mirror("ldlt_factor", fk, xm),
+        "res_kernel_max": rk.max().item(),
         "res_plain_max": rp.max().item(),
         **timing(lambda: ldlt.ldlt_factor(M32),
                  lambda: ldlt.ldlt_factor_plain(M32),
@@ -1805,6 +1830,167 @@ def phase_nlp_extras(card, dev):
     return out, launches
 
 
+def phase_parity_kite_ms(orec, dev, results):
+    """The dense epoch at the MS kite's shape (B=512, n=75, m=50, K=125, 50
+    iterations): on the path's own first epoch by the F64 rule, on random
+    well-conditioned quasi-definite KKTs of that shape against the plain
+    version; its time, bound, launch and time by instances a block.  The
+    LDL^T factor-solve and solve at the MS certify's K=125 on diagonally
+    dominant matrices against the plain version."""
+    from polympc_torch import ocp_extras_point as op
+    from polympc_torch.ops import admm_epoch as ae
+    rng = np.random.default_rng(23)
+    x0s = orec["kite_x0s"]
+    qs, epoch = op.first_epoch(x0s.shape[0], dev, x0s)
+    B, n = epoch[1].shape
+    m = epoch[2].shape[1]
+    kw = dict(sigma=qs.sigma, alpha=qs.alpha, iters=qs.check_every)
+    kern, plain = epoch_fns(**kw)
+    err = check_against_f64("admm_epoch (MS kite)", kern, plain, epoch, ())
+    case = random_dense_epoch(n, m, B, rng, dev)
+    rel = check_tight("admm_epoch (MS kite shape)", kern, plain, case, (),
+                      EPOCH_RTOL)
+    say("parity", f"admm_epoch random quasi-definite B={B} n={n} m={m}: rel "
+                  f"{rel:.2e} (tol {EPOCH_RTOL})")
+    k125 = {**err, **timing(lambda: kern(*epoch), lambda: plain(*epoch),
+                            None, bound_admm_epoch(B, n, m, qs.check_every)),
+            "random_rel_vs_plain": rel,
+            "shape": f"B={B} n={n} m={m} iters={qs.check_every}",
+            "launch": epoch_launch(ae, n, m),
+            "ms_by_threads": epoch_by_threads(ae, epoch, kw)}
+    results["admm_epoch"]["kite_ms_K125"] = k125
+    say("parity", f"admm_epoch at the MS kite batch's first epoch B={B} "
+                  f"K={n + m}: {k125}")
+    # the LDL^T kernels at the MS certify's K on well-conditioned matrices
+    # (the certify's own matrices are checked after the path)
+    import torch
+    from polympc_torch.ops import ldlt
+    A, bA = diag_dominant(B, n + m, rng, dev)
+    rel = check_tight("ldlt_factor_solve", lambda *a: torch.cat(
+        ldlt.ldlt_factor_solve(*a)[::2], 1), lambda *a: torch.cat(
+        ldlt.ldlt_factor_solve_plain(*a)[::2], 1), (A, bA), (), LDLT_RTOL)
+    _, FA, dA = ldlt.ldlt_factor_solve_plain(A, bA)
+    rel2 = check_tight("ldlt_solve", ldlt.ldlt_solve, ldlt.ldlt_solve_plain,
+                       (FA, dA, bA), (), LDLT_RTOL)
+    say("parity", f"ldlt_factor_solve / ldlt_solve random diagonally "
+                  f"dominant B={B} K={n + m}: rel {rel:.2e} / {rel2:.2e} "
+                  f"(tol {LDLT_RTOL})")
+
+
+def phase_kite_ms(orec, card, dev):
+    """The kite by multiple shooting (B=512): a B=8 warm-up, then the
+    median of 3 timed batches (float32 SQP through the dense epoch kernel,
+    float64 certify through the LDL^T kernels), against the JAX record."""
+    from polympc_torch import ocp_extras_point as op
+    x0s = orec["kite_x0s"]
+    (extra, lanes), launches = run_path(
+        "kite_ms_b512", lambda: op.kite_ms(x0s.shape[0], dev, reps=3,
+                                           x0s=x0s, warmup=8),
+        ("admm_epoch", "ldlt_factor_solve", "ldlt_solve"))
+    if lanes["x"].shape != orec["kite_x"].shape or \
+            not np.isfinite(lanes["residual"]).all():
+        raise RuntimeError("kite_ms path: results of the wrong shape or "
+                           "not finite")
+    mine, theirs = lanes["certified"], orec["kite_certified"]
+    solved = int((orec["kite_status"] == 1).sum())
+    say("kite_ms_b512", f"{card}: {extra}")
+    say("kite_ms_b512", f"JAX record ({orec['kite_kkt_solver']} epoch, "
+                        f"max_iter {int(orec['kite_max_iter'])}) certifies "
+                        f"{int(theirs.sum())}, status solved {solved}, mean "
+                        f"iters {orec['kite_iters'].mean():.4f}; certified "
+                        f"in both {int((mine & theirs).sum())}, port only "
+                        f"{np.nonzero(mine & ~theirs)[0].tolist()}, record "
+                        f"only {np.nonzero(~mine & theirs)[0].tolist()}")
+    if extra["certified"] < int(theirs.sum()) - KITE_MS_SLACK or \
+            extra["status_solved"] < solved - KITE_MS_SLACK:
+        raise RuntimeError(f"kite_ms path: certified {extra['certified']}, "
+                           f"SOLVED {extra['status_solved']}; the record's "
+                           f"{int(theirs.sum())} and {solved} less "
+                           f"{KITE_MS_SLACK}")
+    return extra, lanes, launches
+
+
+def phase_parity_kite_ms_refine(orec, lanes, dev, results):
+    """The LDL^T kernels on the MS certify's Newton-KKT matrices (K=125) at
+    the path's float32 solution (after the path, from its solution): the
+    residual test on every lane, its failing lanes printed and carried in
+    the kernels line (``gate_failed_lanes``) without stopping the run.
+    Every MS lane's unpivoted factor pivots on the certify's 1e-6
+    regularisation (the last node's gamma and s_dot carry no curvature),
+    where both float32 residuals are rounding; the failure stands as a
+    fault of the unpivoted route on this NLP in both packages (ROADMAP
+    queue 3).  The factor, the mirror and the finiteness checks raise."""
+    from polympc_torch import ocp_extras_point as op
+    Ms, rs = op.certify_system(lanes["x"], lanes["lam"], orec["kite_x0s"],
+                               dev)
+    M32, r32 = Ms.float().contiguous(), rs.float().contiguous()
+    B, K = r32.shape
+    out = refine_checks(Ms, M32, r32, fatal=False)
+    for name in ("ldlt_factor_solve", "ldlt_solve", "ldlt_factor"):
+        results[name]["kite_ms"] = {**out[name], "shape": f"B={B} K={K}"}
+        say("parity", f"{name} at the MS kite certify's refine matrices "
+                      f"B={B} K={K}: {out[name]}")
+
+
+def _near(a, b, rtol):
+    return abs(a - b) <= rtol * max(abs(b), 1e-300)
+
+
+def phase_ocp_extras(orec, card, dev):
+    """The OCP extras in float64 on the card (no kernel: the kernels take
+    float32), each held to its JAX test's oracle and to the record."""
+    from polympc_torch import ocp_extras_point as op
+    out, launches = run_path("ocp_extras", lambda: op.ocp_extras(dev), ())
+    say("ocp_extras", f"{card}, float64, no kernel on this path: {out}")
+    r, tol = orec, OCP_EXTRAS_COST_RTOL
+    ms, sr, stf = out["ms_robot"], out["soft_robot"], out["stiff"]
+    rate, ident, ig = out["rate"], out["identify"], out["integrators"]
+    c_ps = float(r["ms_robot_collocation_cost"])
+    checks = {
+        "ms_robot": ms["status"] == 1 and ms["x0_error"] <= 1e-8
+        and ms["max_abs_eq"] <= 1e-4 and _near(ms["cost"], c_ps, 2e-2)
+        and _near(ms["cost"], float(r["ms_robot_cost"]), tol)
+        and _near(ms["collocation_cost"], c_ps, tol),
+        "soft_robot": sr["status"] == 1 and sr["ne"] == 0
+        and abs(sr["cost"] - c_ps) / c_ps < 0.1
+        and _near(sr["cost"], float(r["soft_robot_cost"]), tol),
+        "stiff": all(stf[k]["status"] == 1
+                     for k in ("oracle", "lobatto", "radau"))
+        and stf["radau"]["traj_err"] < stf["lobatto"]["traj_err"]
+        and stf["radau"]["cost_err"] < stf["lobatto"]["cost_err"]
+        and all(_near(stf[k]["cost"], float(r[f"stiff_{k}_cost"]), tol)
+                for k in ("oracle", "lobatto", "radau")),
+        "rate": rate["rate"]["status"] == rate["free"]["status"] == 1
+        and rate["rate"]["max_rate"] <= 1.2 + 1e-4
+        and rate["free"]["max_rate"] > 1.2
+        and rate["rate"]["bbt_structure_is_none"]
+        and _near(rate["rate"]["cost"], float(r["rate_cost"]), tol),
+        "identify": ident["status"] == 1
+        and np.abs(np.asarray(ident["p"]) - [4.0, 0.3]).max() <= 1e-3
+        and np.abs(np.asarray(ident["p_init"]) - [4.0, 0.3]).max() <= 1e-3
+        and np.abs(np.asarray(ident["p"]) - r["ident_p"]).max() <= 1e-6,
+        "integrators": ig["device"].startswith("cuda")
+        and ig["exp"]["stats"][2] == 1
+        and _near(ig["exp"]["x"], float(np.exp(-2.0)), 1e-5)
+        and ig["oscillator"]["stats"][2] == 1
+        and ig["oscillator"]["error"] <= 1e-5
+        and ig["exhausted"]["stats"][2] == 0
+        and ig["ps"]["error"] <= 1e-7
+        and np.abs(np.asarray(ig["ps"]["X"]) - r["ps_X"][:, 0]).max()
+        <= 1e-9}
+    say("ocp_extras", "adaptive step counts (accepted, rejected, success) "
+                      f"against the record: exp {ig['exp']['stats']} / "
+                      f"{r['adaptive_exp_stats'].tolist()}, oscillator "
+                      f"{ig['oscillator']['stats']} / "
+                      f"{r['adaptive_osc_stats'].tolist()}, exhausted "
+                      f"{ig['exhausted']['stats']} / "
+                      f"{r['adaptive_fail_stats'].tolist()}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise RuntimeError(f"ocp_extras path: {bad} fail their oracles")
+    return out, launches
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -1832,12 +2018,14 @@ def main():
     drec = dict(np.load(DIST_REFERENCE))
     crec = dict(np.load(CSTR_REFERENCE))
     srec = dict(np.load(SOLVERS_REFERENCE))
+    orec = dict(np.load(OCP_EXTRAS_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
     phase_parity_race_car("cuda", parity)
     phase_parity_dist(drec, "cuda", parity)
     phase_parity_cstr(crec, "cuda", parity)
+    phase_parity_kite_ms(orec, "cuda", parity)
     paths = {"kite": phase_kite(ref, smi, "cuda"),
              "spline_qp": phase_spline(rec, smi, "cuda")[1],
              "frame_transform": phase_frame(rec, smi, "cuda")[1],
@@ -1851,6 +2039,9 @@ def main():
     paths["qp_solvers"] = phase_qp_solvers(srec, smi, "cuda")[1]
     paths["lqr"] = phase_lqr(smi, "cuda")[1]
     paths["nlp_extras"] = phase_nlp_extras(smi, "cuda")[1]
+    _, ms_lanes, paths["kite_ms_b512"] = phase_kite_ms(orec, smi, "cuda")
+    phase_parity_kite_ms_refine(orec, ms_lanes, "cuda", parity)
+    paths["ocp_extras"] = phase_ocp_extras(orec, smi, "cuda")[1]
     kernels = []
     for n, src, rep in KERNELS:
         by_path = {p: c[n] for p, c in paths.items()}

@@ -24,7 +24,8 @@ from polympc_torch.parallel import make_batch_solver, pin_initial_state
 from polympc_torch.qp.types import ADMMSettings
 from polympc_torch.utils import status as st
 
-__all__ = ["KKT_TOL", "bench_x0s", "kite_problem", "certify", "run"]
+__all__ = ["KKT_TOL", "bench_x0s", "kite_ocp", "kite_problem",
+           "certify", "certify_pinned", "run"]
 
 KKT_TOL = 1e-6
 
@@ -40,11 +41,16 @@ def bench_x0s(B: int, seed: int = 0):
                      gamma0, s0, np.full(B, 0.05)], axis=1).astype(np.float32)
 
 
+def kite_ocp():
+    """bench.py's OCP: the kite NMPF with the path-state augmentation
+    (nx=5, nu=2, d = [v_ref])."""
+    return augment_ocp(lambda x, u: kite_dynamics(x, u), kite_output,
+                       kite_path, nx=3, nu=1, ny=2)
+
+
 def kite_problem(device="cuda", dtype=torch.float32):
     """bench.py's problem and solver settings: (tr, bounds, prm, settings)."""
-    ocp = augment_ocp(lambda x, u: kite_dynamics(x, u), kite_output,
-                      kite_path, nx=3, nu=1, ny=2)
-    tr = transcribe(ocp, SegmentedBasis(Chebyshev(5), 2))
+    tr = transcribe(kite_ocp(), SegmentedBasis(Chebyshev(5), 2))
     prm = tr.params(d=[0.05], t0=0.0, tf=2.0, dtype=dtype, device=device)
     bounds = ocp_bounds(tr, ul=[-5.0, -10.0], uu=[5.0, 10.0],
                         xl=[0.0, -np.pi / 2, -np.pi, -100.0, -100.0],
@@ -62,19 +68,25 @@ def kite_problem(device="cuda", dtype=torch.float32):
 
 def certify(tr, x0s, sols, bounds64, prm64):
     """bench.py's adaptive three-stage fp64 refinement; returns the
-    certified KKT residual per lane (B,) float64.
+    certified KKT residual per lane (B,) float64 (:func:`certify_pinned`
+    on the bounds with node 0 pinned to each lane's x0)."""
+    bnd, _ = pin_initial_state(tr, bounds64, x0s.to(torch.float64))
+    return certify_pinned(tr.nlp, bnd, sols, prm64)
+
+
+def certify_pinned(nlp, bnd, sols, prm64):
+    """bench.py's three stages on per-lane float64 bounds ``bnd``.
 
     Stage 1: two Newton-KKT steps for every lane.  Stage 2: two more for
     the 64 worst lanes, continuing from the last iterate.  Stage 3: a heavy
     restart (10 steps, act_tol=1e-4) for the 16 still-worst lanes from the
     fp32 point.  Every solve is an fp32 LDL^T with fp64 residuals."""
-    B = x0s.shape[0]
-    bnd, _ = pin_initial_state(tr, bounds64, x0s.to(torch.float64))
+    B = sols.x.shape[0]
 
     def one(idx, z, lam, lam_box, **kw):
         b = bnd if idx is None else bnd._replace(
             lbx=bnd.lbx[idx], ubx=bnd.ubx[idx])
-        return refine_solution(tr.nlp, z, lam, lam_box, b, prm64,
+        return refine_solution(nlp, z, lam, lam_box, b, prm64,
                                solve_dtype=torch.float32,
                                matrix_dtype=torch.float32,
                                return_residual=True, **kw)

@@ -12,22 +12,31 @@ through ctypes, as in the JAX package:
 
 :func:`load_native` builds with the JAX package's compiler and flags
 (``g++ -O3 -march=native -std=c++17``) into ``build/polympc_torch_native/``
-beside the package, keyed by a hash of the source, so an edited source
-rebuilds and a stale library is never loaded.  Nothing builds at import.
+beside the package.  The library's file name is a hash of everything that
+decides its machine code (:func:`build_key`): the source, the exact
+command line, the compiler's ``--version`` text, and what ``-march=native``
+means on this host (the compiler's expansion of it, or the CPU model and
+flags where the compiler cannot say).  So an edited source, another
+compiler or flag, or a ``build/`` carried to another machine rebuilds
+instead of loading a stale library.  Nothing builds at import.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load_native", "NativeBuildError", "BUILD_DIR"]
+__all__ = ["load_native", "library_path", "build_key", "NativeBuildError",
+           "BUILD_DIR", "COMPILER", "FLAGS"]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent.parent / "build" / "polympc_torch_native"
+COMPILER = "g++"
+FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -36,19 +45,73 @@ class NativeBuildError(RuntimeError):
     pass
 
 
+def _run(cmd) -> str:
+    """stdout of a command, or "" where it cannot run."""
+    try:
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              check=True).stdout
+    except (subprocess.CalledProcessError, OSError):
+        return ""
+
+
+@functools.lru_cache(maxsize=None)
+def compiler_id(compiler: str = COMPILER) -> str:
+    """The compiler's ``--version`` text."""
+    return _run([compiler, "--version"])
+
+
+@functools.lru_cache(maxsize=None)
+def host_arch(compiler: str = COMPILER) -> str:
+    """What ``-march=native`` selects on this host: the compiler's own
+    expansion (``-march=native -Q --help=target``), else the CPU model and
+    flags from /proc/cpuinfo."""
+    out = _run([compiler, "-march=native", "-Q", "--help=target"])
+    if out:
+        return out
+    try:
+        lines = Path("/proc/cpuinfo").read_text().splitlines()
+    except OSError:
+        return ""
+    keep = [ln for ln in lines
+            if ln.split(":")[0].strip() in ("model name", "flags")]
+    return "\n".join(sorted(set(keep)))
+
+
+def build_key(source: bytes, cmd, compiler_text: str, arch_text: str) -> str:
+    """The 16-hex-digit name of a build: a hash of the source, the command
+    line (without its output path), the compiler's version text and the
+    host's ``-march=native`` expansion."""
+    h = hashlib.sha256()
+    for part in (source, "\0".join(cmd).encode(), compiler_text.encode(),
+                 arch_text.encode()):
+        h.update(hashlib.sha256(part).digest())
+    return h.hexdigest()[:16]
+
+
+def _command(src: Path):
+    return [COMPILER, *FLAGS, str(src)]
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``<name>.cpp`` built here, now, lives."""
+    src = _DIR / f"{name}.cpp"
+    key = build_key(src.read_bytes(), _command(src), compiler_id(COMPILER),
+                    host_arch(COMPILER))
+    return BUILD_DIR / f"_{name}_{key}.so"
+
+
 def load_native(name: str) -> ctypes.CDLL:
     """Compile (if needed) and load ``<name>.cpp`` as a shared library."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
         src = _DIR / f"{name}.cpp"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"_{name}_{digest}.so"
+        so = library_path(name)
         if not so.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_name(so.name + f".tmp{os.getpid()}")
-            cmd = ["g++", "-O3", "-march=native", "-std=c++17", "-shared",
-                   "-fPIC", "-o", str(tmp), str(src)]
+            cmd = _command(src)
+            cmd[-1:-1] = ["-o", str(tmp)]
             try:
                 subprocess.run(cmd, check=True, capture_output=True,
                                text=True)

@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-from polympc_torch.nlp.sqp import _constraints, derivative_fns
+from polympc_torch.nlp.sqp import (_constraints, derivative_fns,
+                                   exact_hessian_fn)
 from polympc_torch.nlp.types import NLP, NLPBounds
 from polympc_torch.ops.ldlt import LDLT_MAX_K, ldlt_factor_solve, ldlt_solve
 from polympc_torch.utils.precision import full_precision
@@ -168,6 +169,14 @@ def _newton_system(W, g, c, J, z, lam, act, delta: float = 1e-6):
     return Ms, dscale * (-r), dscale
 
 
+def _hessian_fn(nlp: NLP, p_md, md):
+    """The Lagrangian Hessian evaluated in ``md`` and returned in float64
+    (``nlp.sqp.exact_hessian_fn``: the NLP's own ``lag_hessian``, else the
+    JAX package's whole-vector fallback)."""
+    hess = exact_hessian_fn(nlp, p_md)
+    return lambda zz, ll: hess(zz.to(md), ll.to(md)).to(f64)
+
+
 @full_precision()
 def newton_system(nlp: NLP, z, lam, bounds: NLPBounds, p=None,
                   act_tol: float = 1e-3, matrix_dtype=None):
@@ -179,7 +188,7 @@ def newton_system(nlp: NLP, z, lam, bounds: NLPBounds, p=None,
     p64 = _cast_params(p, f64)
     cl, cu, lbx, ubx = _lane_bounds(nlp, bounds, z.shape[0], f64)
     g, c, J = _eval_parts(nlp, z, p64)
-    W = nlp.lag_hessian(z.to(md), lam.to(md), _cast_params(p, md)).to(f64)
+    W = _hessian_fn(nlp, _cast_params(p, md), md)(z, lam)
     act = _active_set(z, c, cl, cu, lbx, ubx, act_tol)
     Ms, rs, _ = _newton_system(W, g, c, J, z, lam, act)
     return Ms, rs
@@ -230,19 +239,7 @@ def refine_solution(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p=None,
     cl, cu, lbx, ubx = _lane_bounds(nlp, bounds, B, f64)
     grad_fn, jac_fn = derivative_fns(nlp, p64)
 
-    if nlp.lag_hessian is not None:
-        hess = lambda zz, ll: nlp.lag_hessian(zz.to(md), ll.to(md),
-                                              p_md).to(f64)
-    else:
-        from torch.func import grad, jacrev, vmap
-
-        def lagr(v, ll):
-            val = nlp.cost(v[None], p_md)[0]
-            if m:
-                val = val + _constraints(nlp, v[None], p_md)[0] @ ll
-            return val
-        hess = lambda zz, ll: vmap(jacrev(grad(lagr)))(
-            zz.to(md), ll.to(md)).to(f64)
+    hess = _hessian_fn(nlp, p_md, md)
 
     def residual_of(z, lam, lam_box, g, c, J):
         return _kkt_from_parts(g, c, J, z, lam, lam_box, cl, cu, lbx,

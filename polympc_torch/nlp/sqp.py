@@ -31,11 +31,12 @@ from polympc_torch.nlp.hessian import (
 )
 from polympc_torch.nlp.types import NLP, NLPBounds, SQPSettings, SQPSolution
 from polympc_torch.qp.box_admm import box_admm_solve
+from polympc_torch.qp.box_admm import first_epoch as _qp_first_epoch
 from polympc_torch.qp.types import QPData
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
 
-__all__ = ["sqp_solve"]
+__all__ = ["sqp_solve", "first_epoch"]
 
 
 def _inf_norm(v):
@@ -85,6 +86,68 @@ def derivative_fns(nlp: NLP, p):
     return grad_fn, jac_fn
 
 
+def exact_hessian_fn(nlp: NLP, p):
+    """The exact Lagrangian Hessian (x (B, n), lam (B, m)) -> (B, n, n):
+    the NLP's hook where it has one, per-lane ``torch.func`` otherwise."""
+    if nlp.lag_hessian is not None:
+        return lambda x, lam: nlp.lag_hessian(x, lam, p)
+
+    def lagr(xi, li):
+        val = nlp.cost(xi[None], p)[0]
+        if nlp.m:
+            val = val + _constraints(nlp, xi[None], p)[0] @ li
+        return val
+    return vmap(jacrev(grad(lagr)))
+
+
+def _box_bounds(nlp: NLP, bounds: NLPBounds | None, B, n, dt, dev):
+    """(lbx, ubx, cl, cu) per lane, infinite where ``bounds`` is None."""
+    if bounds is None:
+        inf = float("inf")
+        bounds = NLPBounds(
+            lbx=torch.full((n,), -inf, dtype=dt, device=dev),
+            ubx=torch.full((n,), inf, dtype=dt, device=dev),
+            gl=torch.full((nlp.ni,), -inf, dtype=dt, device=dev),
+            gu=torch.full((nlp.ni,), inf, dtype=dt, device=dev))
+    return (bounds.lbx.to(dt).expand(B, n), bounds.ubx.to(dt).expand(B, n),
+            *_row_bounds(nlp, bounds, B, dt))
+
+
+def _subproblem(H, g, A, c, cl, cu, lbx, ubx, x, settings: SQPSettings):
+    """The QP in the step: regularised Hessian, bounds shifted by x."""
+    return QPData(H=regularize(H, settings.reg, settings.reg_eps), h=g, A=A,
+                  al=cl - c, au=cu - c, xl=lbx - x, xu=ubx - x)
+
+
+@full_precision()
+def first_epoch(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
+                lam0=None, lam_box0=None,
+                settings: SQPSettings = SQPSettings()):
+    """The inputs of the first boxADMM epoch that :func:`sqp_solve` runs
+    from the same arguments (exact or Gauss-Newton Hessian): its first
+    QP, built as the solve builds it, handed to
+    ``qp.box_admm.first_epoch`` with the multipliers as dual warm start.
+    Returns the 13 arguments of ``ops.admm_epoch``.  The kernels' checks
+    take the SQP paths' first epochs from here."""
+    B, n = x0.shape
+    dt, dev = x0.dtype, x0.device
+    lbx, ubx, cl, cu = _box_bounds(nlp, bounds, B, n, dt, dev)
+    if settings.hessian == "exact":
+        hess_fn = exact_hessian_fn(nlp, p)
+    elif settings.hessian == "gauss_newton":
+        hess_fn = lambda x, lam: nlp.gn_hessian(x, p)
+    else:
+        raise ValueError(f"first_epoch: hessian={settings.hessian!r} "
+                         "carries its matrix in the solve's state")
+    x = torch.clamp(x0.to(dt), min=lbx, max=ubx)
+    lam = torch.zeros((B, nlp.m), dtype=dt, device=dev) if lam0 is None \
+        else lam0.to(dt)
+    grad_fn, jac_fn = derivative_fns(nlp, p)
+    qp = _subproblem(hess_fn(x, lam), grad_fn(x), jac_fn(x),
+                     _constraints(nlp, x, p), cl, cu, lbx, ubx, x, settings)
+    return _qp_first_epoch(qp, y0=lam, y_box0=lam_box0, settings=settings.qp)
+
+
 def _row_bounds(nlp: NLP, bounds: NLPBounds, B, dt):
     z = torch.zeros((B, nlp.ne), dtype=dt, device=bounds.gl.device)
     cl = torch.cat([z, bounds.gl.to(dt).expand(B, nlp.ni)], dim=1)
@@ -126,16 +189,7 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
     B, n = x0.shape
     m = nlp.m
     dt, dev = x0.dtype, x0.device
-    if bounds is None:
-        inf = float("inf")
-        bounds = NLPBounds(
-            lbx=torch.full((n,), -inf, dtype=dt, device=dev),
-            ubx=torch.full((n,), inf, dtype=dt, device=dev),
-            gl=torch.full((nlp.ni,), -inf, dtype=dt, device=dev),
-            gu=torch.full((nlp.ni,), inf, dtype=dt, device=dev))
-    lbx = bounds.lbx.to(dt).expand(B, n)
-    ubx = bounds.ubx.to(dt).expand(B, n)
-    cl, cu = _row_bounds(nlp, bounds, B, dt)
+    lbx, ubx, cl, cu = _box_bounds(nlp, bounds, B, n, dt, dev)
 
     cost_fn = lambda x: nlp.cost(x, p)
     con_fn = lambda x: _constraints(nlp, x, p)
@@ -147,15 +201,8 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         hess_fn = lambda x, lam: nlp.gn_hessian(x, p)
     elif mode != "exact":
         hess_fn = None  # the quasi-Newton modes carry their matrix per lane
-    elif nlp.lag_hessian is not None:
-        hess_fn = lambda x, lam: nlp.lag_hessian(x, lam, p)
     else:
-        def lagr(xi, li):
-            val = nlp.cost(xi[None], p)[0]
-            if m:
-                val = val + _constraints(nlp, xi[None], p)[0] @ li
-            return val
-        hess_fn = vmap(jacrev(grad(lagr)))
+        hess_fn = exact_hessian_fn(nlp, p)
     if mode == "block_bfgs":
         if nlp.block_structure is None:
             raise ValueError(
@@ -180,9 +227,8 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         x, lam, lam_box, g, c, A, f0 = (s[k] for k in (
             "x", "lam", "lam_box", "g", "c", "A", "f"))
         b = x.shape[0]
-        H = regularize(hessian(s, x, lam), settings.reg, settings.reg_eps)
-        qp = QPData(H=H, h=g, A=A, al=cl - c, au=cu - c, xl=lbx - x,
-                    xu=ubx - x)
+        qp = _subproblem(hessian(s, x, lam), g, A, c, cl, cu, lbx, ubx, x,
+                         settings)
         qs = box_admm_solve(qp, y0=lam, y_box0=lam_box, settings=settings.qp)
         p_ok = (torch.isfinite(qs.x).all(1) & torch.isfinite(qs.y).all(1)
                 & torch.isfinite(qs.y_box).all(1))[:, None]

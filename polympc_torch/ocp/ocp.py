@@ -30,8 +30,8 @@ class OCP:
     lagrange: Optional[Callable] = None   # (x, u, p, d, t) -> scalar
     mayer: Optional[Callable] = None      # (x, p, d) -> scalar (at t = tf)
     ineq: Optional[Callable] = None       # (x, u, p, d, t) -> (ng,)
-    # trajectory-level hooks (whole-horizon X, U, P, d, t, ops): the JAX
-    # package supports them; their transcription is ported in slice 4
+    # trajectory-level hooks on one lane's whole horizon
+    # (X (N, nx), U (N, nu), P, d, t (N,), ops: SpectralOps)
     trajectory_cost: Optional[Callable] = None
     trajectory_ineq: Optional[Callable] = None
     ntg: int = 0

@@ -41,7 +41,7 @@ from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
 
 __all__ = ["box_admm_solve", "admm_solve", "classify_constraints",
-           "rho_vector", "penalties", "epoch_route"]
+           "rho_vector", "penalties", "epoch_route", "first_epoch"]
 
 
 def _inf_norm(v):
@@ -285,8 +285,10 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
     return _box_admm_raw(qp, x0, y0, y_box0, settings)
 
 
-def _box_admm_raw(qp: QPData, x0, y0, y_box0,
-                  settings: ADMMSettings) -> QPSolution:
+def _start(qp: QPData, x0, y0, y_box0, settings: ADMMSettings):
+    """The solve's starting point: (qp, scaling) after the Ruiz
+    equilibration (scaling None without it) and the first epoch's state
+    (x, z, q, y, yb) in that scaling."""
     B, n = qp.h.shape
     m = qp.al.shape[1]
     dt, dev = qp.H.dtype, qp.H.device
@@ -305,8 +307,30 @@ def _box_admm_raw(qp: QPData, x0, y0, y_box0,
         x = x / scaling.d
         y = y * c / scaling.e
         yb = yb * scaling.d * c
-    z = _mv(qp.A, x)
-    q = x
+    return qp, scaling, (x, _mv(qp.A, x), x, y, yb)
+
+
+@full_precision()
+def first_epoch(qp: QPData, x0=None, y0=None, y_box0=None,
+                settings: ADMMSettings = ADMMSettings()):
+    """The inputs of :func:`box_admm_solve`'s first epoch on ``qp`` from
+    the same warm starts: the 13 arguments of ``ops.admm_epoch`` (kkt, h,
+    al, au, xl, xu, rho, rho_box, x, z, q, y, yb), every lane at the first
+    penalty, in the Ruiz scaling where ``settings.equil_iters > 0``.  The
+    kernels' checks take their inputs from here."""
+    qp, _, state = _start(qp, x0, y0, y_box0, settings)
+    B = qp.h.shape[0]
+    rho, rb = penalties(torch.full((B,), settings.rho, dtype=qp.H.dtype,
+                                   device=qp.H.device), qp, settings)
+    return (_build_kkt(qp, rho, rb, settings.sigma), qp.h, qp.al, qp.au,
+            qp.xl, qp.xu, rho, rb, *state)
+
+
+def _box_admm_raw(qp: QPData, x0, y0, y_box0,
+                  settings: ADMMSettings) -> QPSolution:
+    B, n = qp.h.shape
+    dt, dev = qp.H.dtype, qp.H.device
+    qp, scaling, (x, z, q, y, yb) = _start(qp, x0, y0, y_box0, settings)
 
     inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
     false = torch.zeros(B, dtype=torch.bool, device=dev)

@@ -573,3 +573,47 @@ def test_nlp_ip_and_lqr_on_the_card(dev):
     torch.testing.assert_close(s_gpu.cost.cpu(), s_cpu.cost, rtol=1e-8,
                                atol=0)
     torch.testing.assert_close(P_gpu, P_cpu, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_admm_epoch_kernel_at_the_ms_kite_first_epoch(dev):
+    """Kernel 7 at K=125 (n=75, m=50) on the MS kite batch's first epoch
+    (B=64 of bench's lanes): one launch, and its per-lane error against
+    the plain version in float64 at most 10x the plain float32 version's
+    (or below 1e-4: the KKT's equality rows carry -1/rho with rho = 1e3,
+    so both float32 results move with the conditioning); on random
+    well-conditioned KKTs of that shape within 1e-4 of the plain version."""
+    from polympc_torch import ocp_extras_point as op
+    qs, args = op.first_epoch(64, dev)
+    assert tuple(args[0].shape) == (64, 125, 125)
+    kw = dict(sigma=qs.sigma, alpha=qs.alpha, iters=qs.check_every)
+    _build.reset_launches()
+    got = torch.cat(admm_epoch.admm_epoch_batched(*args, **kw), 1)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["admm_epoch"] == 1
+    p32 = torch.cat(admm_epoch.admm_epoch_plain(*args, **kw), 1)
+    p64 = torch.cat(admm_epoch.admm_epoch_plain(
+        *(a.double() for a in args), **kw), 1)
+    rel = lambda a: ((a.double() - p64).abs().amax(1)
+                     / p64.abs().amax(1)).max().item()
+    assert torch.isfinite(got).all()
+    assert rel(got) <= max(10.0 * rel(p32), 1e-4)
+    case = _dense_epoch_case(75, 50, 64, dev, seed=125)
+    kw = dict(sigma=SIGMA, alpha=ALPHA, iters=50)
+    got = admm_epoch.admm_epoch_batched(*case, **kw)
+    want = admm_epoch.admm_epoch_plain(*case, **kw)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kite_ms_path_on_the_card(dev):
+    """The MS kite batch's timed unit at B=8 on the card: the dense epoch
+    kernel and the LDL^T kernels launch, and at least 7 of the 8 lanes
+    certify (float32 iterates: a count, not every lane)."""
+    from polympc_torch import ocp_extras_point as op
+    _build.reset_launches()
+    sols, res = op.batch_fn(8, dev)()
+    for k in ("admm_epoch", "ldlt_factor_solve", "ldlt_solve"):
+        assert _build.LAUNCHES[k] > 0, k
+    assert (res <= op.KKT_TOL).sum().item() >= 7

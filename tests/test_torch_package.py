@@ -303,5 +303,57 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.solvers_point.mpc_ip",
                  "polympc_torch.solvers_point.qp_solvers",
                  "polympc_torch.solvers_point.lqr_batch",
-                 "polympc_torch.solvers_point.nlp_extras"):
+                 "polympc_torch.solvers_point.nlp_extras",
+                 "polympc_torch.ocp.multiple_shooting.MSTranscription."
+                 "initial_guess",
+                 "polympc_torch.ocp.multiple_shooting.MSTranscription.params",
+                 "polympc_torch.ocp.multiple_shooting.ms_bounds",
+                 "polympc_torch.ocp.identification.identify",
+                 "polympc_torch.ocp_extras_point.kite_ms_problem",
+                 "polympc_torch.ocp_extras_point.batch_fn",
+                 "polympc_torch.ocp_extras_point.kite_ms",
+                 "polympc_torch.ocp_extras_point.first_epoch",
+                 "polympc_torch.ocp_extras_point.certify_system",
+                 "polympc_torch.ocp_extras_point.pendulum_data",
+                 "polympc_torch.ocp_extras_point.ocp_extras"):
         assert qual in seen, qual
+
+
+def test_top_level_exports_resolve_lazily():
+    """``import polympc_torch`` imports no subpackage; every name of the
+    JAX package's top-level exports resolves on first access, to the same
+    object as the subpackage's."""
+    import importlib
+    import polympc_tpu
+    code = ("import sys, polympc_torch; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('polympc_torch')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "['polympc_torch']"
+    import polympc_torch
+    for mod, names in polympc_tpu._EXPORTS.items():
+        assert polympc_torch._EXPORTS[mod] == names, mod
+        sub = importlib.import_module(f"polympc_torch.{mod}")
+        assert getattr(polympc_torch, mod) is sub
+        for name in names:
+            assert getattr(polympc_torch, name) is getattr(sub, name), name
+    assert set(polympc_tpu.__all__) == set(polympc_torch.__all__)
+    with pytest.raises(AttributeError):
+        polympc_torch.no_such_name
+
+
+def test_subpackage_exports_match_jax():
+    """polympc_torch.ocp and polympc_torch.utils export what the JAX
+    package's ocp and utils export (utils adds full_precision and
+    block_diag_scatter, which the port's solvers share)."""
+    import polympc_tpu.ocp as jo
+    import polympc_tpu.utils as ju
+    import polympc_torch.ocp as to
+    import polympc_torch.utils as tu
+    assert set(to.__all__) == set(jo.__all__)
+    assert set(tu.__all__) == set(ju.__all__) | {"full_precision",
+                                                 "block_diag_scatter"}
+    for m in (to, tu):
+        for name in m.__all__:
+            assert getattr(m, name) is not None, name

@@ -2,9 +2,9 @@
 """Where the time goes in the port's batched paths, on one NVIDIA card.
 
     python3 trace_port.py [kite] [spline] [frame] [race_car] [dist_kite_s8]
-                          [cstr] [kite_ip]
+                          [cstr] [kite_ip] [kite_ms]
 
-Each named path (all seven by default) is built at the widths that
+Each named path (all eight by default) is built at the widths that
 chip_smoke.py drives: bench's certified kite batch (B=512), the spline QP
 batch (B=4096), the frame-transform batch (B=4096), the certified
 race-car batch (B=512), the certified horizon-partitioned kite batch
@@ -17,7 +17,10 @@ polympc_torch/cstr_point.py), cut to its first CSTR_TRACE_ITERS SQP
 iterations (its lanes run 7 to 150, 59 on average in the JAX record); and
 bench's kite batch through the float64 interior point (B=512,
 polympc_torch/solvers_point.py), cut to its first KITE_IP_TRACE_ITERS
-iterations (its lanes run 22 to 100, 52 on average in the JAX record).
+iterations (its lanes run 22 to 100, 52 on average in the JAX record);
+and bench's kite by multiple shooting (B=512, polympc_torch/
+ocp_extras_point.py: whole-vector torch.func derivatives, the dense epoch
+kernel at K=125, the float64 certify), whole.
 Its timed unit runs once to warm up, once timed on the host
 clock (ending in torch.cuda.synchronize()), then once under torch.profiler
 with CPU and CUDA activities.  Per path one JSON line:
@@ -50,7 +53,7 @@ def units(dev):
     """name -> a function of no arguments running one batched unit."""
     import torch
     from polympc_torch import cstr_point, dist_point, headline
-    from polympc_torch import solvers_point
+    from polympc_torch import ocp_extras_point, solvers_point
     from polympc_torch.nlp import IPNLPSettings, nlp_ip_solve
     from polympc_torch import headline_table as ht
     from polympc_torch.control.path import project_on_path_newton
@@ -85,7 +88,8 @@ def units(dev):
                 128, dev, max_iter=DIST_TRACE_ITERS),
             "cstr": lambda: cstr_point.batch_fn(
                 256, dev, max_iter=CSTR_TRACE_ITERS),
-            "kite_ip": kite_ip}
+            "kite_ip": kite_ip,
+            "kite_ms": lambda: ocp_extras_point.batch_fn(512, dev)}
 
 
 def busy_ms(intervals):
