@@ -29,7 +29,8 @@ Phases, each printing its own lines and raising on failure:
      batch's first epoch (B=512, n=75, m=50, K=125), and the LDL^T
      factor-solve and solve at K=125 on diagonally dominant matrices;
   4. main paths, each with the launch counts set to 0 just before it and
-     read just after:
+     read just after (the LDL^T kernels on every path's certify matrices by
+     one residual gate, every lane, raising: refine_checks):
        kite: bench.py's certified kite batch (B=512), one warm-up then the
          median wall of 3 repetitions, against the JAX package's record
          (tests/data/kite_b512_jax_cpu.npz);
@@ -45,6 +46,13 @@ Phases, each printing its own lines and raising on failure:
        then, outside the counts, the same batch through the "lu" route;
        each route against the JAX package's record of the same route
        (tests/data/dist_kite_s8_jax_cpu.npz);
+       dist_sharded: the same batch through make_batch_dist_solver on a
+       ("dp", "seg") mesh of one rank in a one-rank NCCL group (segment
+       sharding over torch.distributed; kernel 6 in the sharded Schur
+       factor), held per lane against the dist_kite_s8 batch of this call
+       and, certified by dist_refine on the mesh, against the record; with
+       more than one card also the dry run over every card
+       (polympc_torch/multichip_point.py);
        cstr_b256: the CSTR batch of BASELINE config 3
        (polympc_torch/cstr_point.py: B=256, fp32 SQP through the BBT epoch,
        fp64 certify) after a B=8 warm-up, against the JAX package's record
@@ -78,6 +86,20 @@ Phases, each printing its own lines and raising on failure:
          Radau against Lobatto on a stiff OCP, a trajectory-hook rate
          bound, identify, and the adaptive and pseudospectral integrators,
          one float64 call each with the JAX tests' oracles;
+       horizon_sweep (polympc_torch/scaling_point.py, the twin of
+         benchmarks/scaling.py): the kite on Chebyshev(5) x S for S = 2,
+         4, 8, 16 at B = max(128, 1024 // S), each S through the dense and
+         the BBT epoch where its fit rule holds (else a skipped row) and,
+         where neither fits (S=16), the solver's own route (the LU epoch);
+         each row after a warm-up (median of 3 at S <= 4, one at S >= 8)
+         with bench's fp64 certify, its certified count against the JAX
+         record of the same S (tests/data/scaling_jax_cpu.npz), and each
+         row's own launches read around it, which must show the row's
+         route (its epoch kernel, or none for the LU epoch, and the LDL^T
+         kernels in its certify exactly at K <= 206); after the path, the
+         measured epoch kernels (20 back to back), kernel 1 at S=4 and
+         S=8, kernel 7 at K=252 on the rows' first epochs and the LDL^T
+         kernels on the S=4 certify's matrices (K=252);
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -102,6 +124,8 @@ SOLVERS_REFERENCE = os.path.join(ROOT, "tests", "data",
                                  "solvers_jax_cpu.npz")
 OCP_EXTRAS_REFERENCE = os.path.join(ROOT, "tests", "data",
                                     "ocp_extras_jax_cpu.npz")
+SCALING_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                 "scaling_jax_cpu.npz")
 
 # Tolerances of the kernel-vs-plain phase.
 # The epoch runs 50 over-relaxed ADMM iterations in float32; the kernel and
@@ -136,15 +160,27 @@ MIRROR_RTOL = 1e-5
 # main path's size.  The refine Newton-KKT matrices are indefinite, so the
 # unpivoted factor can grow large elements and amplify summation-order
 # differences element by element.  On them compare what the certify pass
-# uses instead, the relative residual ||M x - b|| / ||b|| (in float64): the
-# kernel's may exceed the plain version's by at most 10x, or be below 1e-5.
-# A lane whose plain float32 residual is above 1e-3 is dominated by the
-# factor's growth, not by the kernel (both answers are then mostly
-# rounding): such lanes are counted and left out of the ratio test.  The
-# certify pass repairs them with refinement sweeps in float64 residuals.
-# The factor kernel alone is held there on its factor against the plain
-# version in float64 (the F64_RATIO rule above) and on the residual of its
-# factor solved by the solve kernel.
+# uses instead, the relative residual ||M x - b|| / ||b|| (in float64), by
+# one rule on every path and every lane (residual_gate): a lane passes
+#   (a) where the kernel's residual is at most 10x the plain float32
+#       version's, or below 1e-5; or
+#   (b) where the kernel's factor equals the plain factor bit for bit and
+#       its residual is at most 10x that of the float64 substitution on
+#       that float32 factor: this holds the one part the kernel adds beyond
+#       the factor, its substitution, against exact arithmetic.  Where the
+#       factor pivots on the certify's 1e-6 regularisation (every lane of
+#       the kite by multiple shooting) the plain float32 residual is
+#       rounding luck, so (a) alone would hold the kernel against luck
+#       (MS lane 310 on the card: kernel 6.208677e-4, plain 2.851318e-5,
+#       float64 substitution 6.208675e-4; the CPU's plain solve of it
+#       2.3e-3).
+# A lane passing neither raises.  A lane whose plain float32 residual is
+# above 1e-3 is dominated by the factor's growth, not by the kernel (both
+# answers are then mostly rounding): such lanes are counted and left out
+# of the test.  The certify pass repairs them with refinement sweeps in
+# float64 residuals.  The factor kernel alone is held there on its factor
+# against the plain version in float64 (the F64_RATIO rule above) and on
+# the residual of its factor solved by the solve kernel.
 LDLT_RTOL = 1e-4
 LDLT_RES_RATIO = 10.0
 LDLT_RES_FLOOR = 1e-5
@@ -206,6 +242,15 @@ LQR_SCIPY_LANES = 64
 # and the statuses equal and the costs within OCP_EXTRAS_COST_RTOL.
 KITE_MS_SLACK = 10
 OCP_EXTRAS_COST_RTOL = 1e-6
+# The horizon sweep (polympc_torch/scaling_point.py): each row's certified
+# count at least the JAX record's for the same S (its "lu" route) less 2%
+# of B, rounded (float32 chaos; 10 lanes at B=512 as for the kite, 3 at
+# B=128 as for the dist batch).  dist_sharded: the sharded batch
+# against the unsharded one of the same call, per lane: statuses and SQP
+# iterations equal, W within DIST_SHARDED_RTOL relative (the same
+# operations, gathered; bit for bit is expected on one rank).
+SWEEP_SLACK_SHARE = 0.02
+DIST_SHARDED_RTOL = 1e-6
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -340,30 +385,45 @@ def check_tight(name, kernel, plain, args, rest, rtol):
     return rel
 
 
-def residual_gate(rk, rp):
+def residual_gate(rk, rp, r64):
     """The residual test of the LDL^T kernels on refine matrices, lane by
-    lane: (failing lanes, live lanes).  A lane is live where the plain
-    version's residual is at most LDLT_GROWTH, and fails where the
-    kernel's exceeds max(LDLT_RES_RATIO x plain, LDLT_RES_FLOOR)."""
+    lane, for a kernel whose factor equals the plain one bit for bit: rk
+    the kernel's residual, rp the plain float32 version's, r64 that of the
+    float64 substitution on the plain float32 factor.  Returns the masks
+    (live, passes (a), passes (b)): a lane is live where rp is at most
+    LDLT_GROWTH; (a) rk <= max(LDLT_RES_RATIO x rp, LDLT_RES_FLOOR); (b) rk
+    <= LDLT_RES_RATIO x r64."""
     import torch
     live = rp <= LDLT_GROWTH
-    return live & ~(rk <= torch.clamp(LDLT_RES_RATIO * rp,
-                                      min=LDLT_RES_FLOOR)), live
+    by_a = rk <= torch.clamp(LDLT_RES_RATIO * rp, min=LDLT_RES_FLOOR)
+    by_b = rk <= LDLT_RES_RATIO * r64
+    return live, live & by_a, live & by_b
 
 
-def check_residuals(name, rk, rp):
-    """The residual test of the LDL^T kernels on refine matrices."""
+def check_residuals(name, rk, rp, r64):
+    """The residual gate (:func:`residual_gate`): raises where a live lane
+    passes neither test, or where the kernel's residual is not finite and
+    the plain version's is; returns the lane counts (live, passed by (a),
+    by (b), by (b) alone)."""
     import torch
     if not torch.isfinite(rk[torch.isfinite(rp)]).all():
         raise RuntimeError(f"{name}: non-finite kernel residual where the "
                            "plain version's is finite")
-    bad, live = residual_gate(rk, rp)
+    live, by_a, by_b = residual_gate(rk, rp, r64)
+    bad = live & ~by_a & ~by_b
     if bad.any():
+        lanes = bad.nonzero().flatten().tolist()
+        worst = {i: (rk[i].item(), rp[i].item(), r64[i].item())
+                 for i in lanes[:5]}
         raise RuntimeError(
-            f"{name}: {int(bad.sum())} of {int(live.sum())} lanes with kernel "
-            f"residual > max({LDLT_RES_RATIO} x plain, {LDLT_RES_FLOOR}); "
-            f"worst kernel {rk[bad].max().item():.3e}, lanes "
-            f"{bad.nonzero().flatten().tolist()[:20]}")
+            f"{name}: {len(lanes)} of {int(live.sum())} lanes pass neither "
+            f"(a) kernel residual <= max({LDLT_RES_RATIO} x plain, "
+            f"{LDLT_RES_FLOOR}) nor (b) <= {LDLT_RES_RATIO} x the float64 "
+            f"substitution on the same factor; lanes {lanes[:20]}, "
+            f"(kernel, plain, float64) {worst}")
+    return {"gate_live": int(live.sum()), "gate_by_a": int(by_a.sum()),
+            "gate_by_b": int(by_b.sum()),
+            "gate_by_b_only": int((by_b & ~by_a).sum())}
 
 
 def check_mirror(name, x, x_mirror):
@@ -1019,14 +1079,12 @@ def phase_parity_race_car(dev, results):
                       f"K={K}: {out[name]}")
 
 
-def refine_checks(Ms, M32, r32, fatal=True):
+def refine_checks(Ms, M32, r32):
     """The three LDL^T kernels on certify Newton matrices: each against its
-    plain version through the residual test and against the mirror of the
-    kernels' algorithm bit for bit, with their times.  ``fatal=False``
-    (the MS kite's certify, whose failing lane stands in ROADMAP queue 3)
-    runs the residual test on every lane and reports the lanes that fail
-    it, each with the residual of the float64 solve on the same float32
-    factor, instead of raising; every other check raises either way."""
+    plain version through the residual gate (:func:`check_residuals`, every
+    lane, raising) and against the mirror of the kernels' algorithm bit for
+    bit, their factors against the plain factor bit for bit, with their
+    times."""
     import torch
     from polympc_torch.ops import ldlt
     B, K = r32.shape
@@ -1034,34 +1092,16 @@ def refine_checks(Ms, M32, r32, fatal=True):
     out = {}
     launch = {name: ldlt_launch(which, K) for which, name in enumerate(
         ("ldlt_factor", "ldlt_factor_solve", "ldlt_solve"))}
-    xk, _, _ = ldlt.ldlt_factor_solve(M32, r32)
+    xk, Fk, dk = ldlt.ldlt_factor_solve(M32, r32)
     xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M32, r32)
     xm = ldlt.panel_solve_mirror(Fp, dp, r32)
+    # the float64 substitution on the plain float32 factor: test (b)
+    r64 = rel_residual(Ms, ldlt.ldlt_solve_plain(Fp.double(), dp.double(),
+                                                 rs), rs)
     sync()
+    same_factor("ldlt_factor_solve", Fk, dk, Fp, dp)
     rk, rp = rel_residual(Ms, xk, rs), rel_residual(Ms, xp, rs)
-
-    def gate(name, rk, rp):
-        if fatal:
-            check_residuals(name, rk, rp)
-            return {}
-        if not torch.isfinite(rk[torch.isfinite(rp)]).all():
-            raise RuntimeError(f"{name}: non-finite kernel residual where "
-                               "the plain version's is finite")
-        bad, live = residual_gate(rk, rp)
-        lanes = bad.nonzero().flatten().tolist()
-        if lanes:
-            r64 = rel_residual(Ms, ldlt.ldlt_solve_plain(
-                Fp.double(), dp.double(), rs), rs)
-            say("GATE FAILED", f"{name}: {len(lanes)} of {int(live.sum())} "
-                               f"lanes with kernel residual > "
-                               f"max({LDLT_RES_RATIO} x plain, "
-                               f"{LDLT_RES_FLOOR}): lanes {lanes[:20]}")
-        return {"gate_failed_lanes": {
-            int(i): {"kernel": rk[i].item(), "plain": rp[i].item(),
-                     "float64_solve_on_the_factor": r64[i].item()}
-            for i in lanes[:20]}}
-
-    held = gate("ldlt_factor_solve", rk, rp)
+    held = check_residuals("ldlt_factor_solve", rk, rp, r64)
     out["ldlt_factor_solve"] = {
         "max_abs_err": (xk - xp).abs().max().item(), **held,
         "equals_mirror": check_mirror("ldlt_factor_solve", xk, xm),
@@ -1077,7 +1117,7 @@ def refine_checks(Ms, M32, r32, fatal=True):
     sp = ldlt.ldlt_solve_plain(Fp, dp, r32)
     sync()
     rk, rp = rel_residual(Ms, sk, rs), rel_residual(Ms, sp, rs)
-    held = gate("ldlt_solve", rk, rp)
+    held = check_residuals("ldlt_solve", rk, rp, r64)
     ldl_solve = ldl_solve_library(Fp, dp, r32, sp)
     out["ldlt_solve"] = {
         "max_abs_err": (sk - sp).abs().max().item(), **held,
@@ -1098,14 +1138,11 @@ def refine_checks(Ms, M32, r32, fatal=True):
     # factor's residual under other sweeps
     Fk, dk = ldlt.ldlt_factor(M32)
     err = check_factor_against_f64("ldlt_factor", Fk, dk, M32)
-    if err["max_abs_err"] != 0.0:
-        raise RuntimeError(f"ldlt_factor: the factor differs from the plain "
-                           f"version's by {err['max_abs_err']:.3e}; the "
-                           "kernels round as it does, bit for bit")
+    same_factor("ldlt_factor", Fk, dk, Fp, dp)
     fk = ldlt.ldlt_solve(Fk, dk, r32)
     sync()
     rk = rel_residual(Ms, fk, rs)
-    held = gate("ldlt_factor", rk, rp)
+    held = check_residuals("ldlt_factor", rk, rp, r64)
     out["ldlt_factor"] = {
         **err, **held, "equals_mirror": check_mirror("ldlt_factor", fk, xm),
         "res_kernel_max": rk.max().item(),
@@ -1117,6 +1154,20 @@ def refine_checks(Ms, M32, r32, fatal=True):
                  bound_ldlt("factor", B, K)),
         "launch": launch["ldlt_factor"]}
     return out
+
+
+def same_factor(name, Fk, dk, Fp, dp):
+    """The kernel's factor (F's upper triangle, d) equal to the plain
+    version's bit for bit; the kernels round as it does."""
+    import torch
+    K = Fk.shape[-1]
+    upper = torch.triu(torch.ones(K, K, dtype=torch.bool,
+                                  device=Fk.device))
+    same = lambda a, b: bool(((a == b) | (a.isnan() & b.isnan())).all())
+    if not (same(Fk[:, upper], Fp[:, upper]) and same(dk, dp)):
+        raise RuntimeError(f"{name}: the factor differs from the plain "
+                           "version's; the kernels round as it does, bit "
+                           "for bit")
 
 
 def ldl_solve_library(F, d, b, x_plain):
@@ -1441,7 +1492,7 @@ def phase_dist(drec, card, dev):
     for r, v in b1.items():
         if not np.isfinite(v["violation"]):
             raise RuntimeError(f"dist B=1 ({r}): non-finite violation")
-    return extra, launches
+    return extra, lanes, launches
 
 
 def phase_cstr(crec, card, dev):
@@ -1912,20 +1963,18 @@ def phase_kite_ms(orec, card, dev):
 
 def phase_parity_kite_ms_refine(orec, lanes, dev, results):
     """The LDL^T kernels on the MS certify's Newton-KKT matrices (K=125) at
-    the path's float32 solution (after the path, from its solution): the
-    residual test on every lane, its failing lanes printed and carried in
-    the kernels line (``gate_failed_lanes``) without stopping the run.
-    Every MS lane's unpivoted factor pivots on the certify's 1e-6
-    regularisation (the last node's gamma and s_dot carry no curvature),
-    where both float32 residuals are rounding; the failure stands as a
-    fault of the unpivoted route on this NLP in both packages (ROADMAP
-    queue 3).  The factor, the mirror and the finiteness checks raise."""
+    the path's float32 solution (after the path, from its solution), by
+    the residual gate on every lane.  Every MS lane's unpivoted factor
+    pivots on the certify's 1e-6 regularisation (the last node's gamma and
+    s_dot carry no curvature), where the plain float32 residual is
+    rounding luck; such lanes pass by test (b), the kernel's substitution
+    against the float64 one on the same factor."""
     from polympc_torch import ocp_extras_point as op
     Ms, rs = op.certify_system(lanes["x"], lanes["lam"], orec["kite_x0s"],
                                dev)
     M32, r32 = Ms.float().contiguous(), rs.float().contiguous()
     B, K = r32.shape
-    out = refine_checks(Ms, M32, r32, fatal=False)
+    out = refine_checks(Ms, M32, r32)
     for name in ("ldlt_factor_solve", "ldlt_solve", "ldlt_factor"):
         results[name]["kite_ms"] = {**out[name], "shape": f"B={B} K={K}"}
         say("parity", f"{name} at the MS kite certify's refine matrices "
@@ -1991,6 +2040,232 @@ def phase_ocp_extras(orec, card, dev):
     return out, launches
 
 
+def phase_dist_sharded(drec, lanes, card, dev):
+    """The dist kite batch (S=8, B=128, the kernel route) through
+    ``make_batch_dist_solver`` on ``mesh_2d(1, 1)`` in a one-rank NCCL
+    group: held against the unsharded batch of the dist_kite_s8 path of
+    this call, per lane, and its certify (``dist_refine`` on the mesh)
+    against the record.  With more than one card, also the dry run's
+    composed (dp, seg) solve over every card
+    (``multichip_point.run``)."""
+    import torch
+    import torch.distributed as dist
+    from polympc_torch import dist_point as dp
+    from polympc_torch.multichip_point import free_port
+    from polympc_torch.multichip_point import run as multichip_run
+    from polympc_torch.parallel import initialize_multihost, mesh_2d
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"dist_sharded: the group runs "
+                               f"{dist.get_backend()}, not NCCL")
+        once = dp.batch_fn(drec["x0s"].shape[0], dev, drec["x0s"],
+                           mesh=mesh_2d(1, 1))
+        (out, res, solve_s, _), launches = run_path(
+            "dist_sharded", once, ("ldlt_inverse",))
+        extra, mine = dp.summarize(out, res)
+        same = {k: bool(np.array_equal(mine[k], lanes[k]))
+                for k in ("status", "iters", "qp_iters", "W")}
+        W, W0 = mine["W"].astype(np.float64), lanes["W"].astype(np.float64)
+        rel = float(lane_rel(torch.as_tensor(W - W0),
+                             torch.as_tensor(W0)).max())
+        say("dist_sharded", f"{card}: one NCCL rank, mesh (dp=1, seg=1); "
+                            f"solve {solve_s:.3f} s; {extra}")
+        say("dist_sharded", f"against the unsharded batch of this call: "
+                            f"equal bit for bit {same}; W per-lane "
+                            f"relative difference {rel:.3e}")
+        if not (same["status"] and same["iters"]) or \
+                not rel <= DIST_SHARDED_RTOL:
+            raise RuntimeError("dist_sharded: statuses, iterations or W "
+                               "differ from the unsharded batch")
+        compare_dist(drec, "pallas_", mine, "sharded, kernel route")
+        if torch.cuda.device_count() > 1:
+            say("dist_sharded", "the dry run over every card: " + json.dumps(
+                multichip_run(torch.cuda.device_count(), dev)))
+        else:
+            say("dist_sharded", "one card: ran one rank; the (dp, seg) "
+                                "composed solve over several cards did not "
+                                "run")
+        extra.update(solve_s=solve_s, bitwise=same, W_rel=rel)
+        return extra, launches
+    finally:
+        dist.destroy_process_group()
+
+
+# the epoch kernel that each route of the sweep's QPs launches
+ROUTE_KERNEL = {"bbt": "bbt_epoch", "dense_kernel": "admm_epoch", "lu": None}
+
+
+def row_route(row, ldlt_max_k):
+    """The route a sweep row took, read from its own launches: its QPs
+    launched the epoch kernel of one route and no other ("lu": neither),
+    and its certify the LDL^T factor-solve exactly where K is at most
+    ``ldlt_max_k``.  Raises where that disagrees with the route the row
+    reports or a skipped row launched anything."""
+    got = row["launches"]
+    if "skipped" in row:
+        if got:
+            raise RuntimeError(f"horizon_sweep S={row['segments']} "
+                               f"{row['backend']}: skipped, yet launched "
+                               f"{got}")
+        return "skipped"
+    taken = [r for r, k in ROUTE_KERNEL.items() if k and got.get(k, 0)]
+    taken = "+".join(taken) or "lu"
+    if taken != row["route"]:
+        raise RuntimeError(f"horizon_sweep S={row['segments']} "
+                           f"{row['backend']}: the route is "
+                           f"{row['route']} but its QPs launched {got}")
+    if (got.get("ldlt_factor_solve", 0) > 0) != (row["K"] <= ldlt_max_k):
+        raise RuntimeError(f"horizon_sweep S={row['segments']} "
+                           f"{row['backend']} K={row['K']}: its certify "
+                           f"launched {got}, the LDL^T kernels being its "
+                           f"route exactly where K <= {ldlt_max_k}")
+    return taken
+
+
+def phase_horizon_sweep(grec, card, dev):
+    """The horizon sweep (polympc_torch/scaling_point.py): every row after
+    its warm-up, each certified count against the JAX record's for the
+    same S.  Each row's launches are read around the row itself and must
+    show its own route (``row_route``).  After the path, outside its
+    window, the measured epoch kernels (run_kernel_micro) with their
+    bounds."""
+    from polympc_torch import scaling_point as sp
+    from polympc_torch.nlp.refine import REFINE_LDLT_MAX_K
+    from polympc_torch.ops import _build
+
+    def body():
+        out, before = [], dict(_build.LAUNCHES)
+        for row, lanes in sp.sweep(device=dev,
+                                   x0s=lambda S, B: grec[f"s{S}_x0s"]):
+            now = dict(_build.LAUNCHES)
+            row["launches"] = {k: now[k] - before[k] for k in now
+                               if now[k] != before[k]}
+            before = now
+            out.append((row, lanes))
+        return out
+    rows, launches = run_path(
+        "horizon_sweep", body, ("bbt_epoch", "admm_epoch",
+                                "ldlt_factor_solve", "ldlt_solve"))
+    for row, lanes in rows:
+        S, B = row["segments"], row["batch"]
+        taken = row_route(row, REFINE_LDLT_MAX_K)
+        if "skipped" in row:
+            say("horizon_sweep", f"S={S:2d} {row['backend']:5s} "
+                                 f"K={row['K']}: skipped, {row['skipped']}")
+            continue
+        if lanes["residual"].shape != (B,) or \
+                not np.isfinite(lanes["residual"]).all():
+            raise RuntimeError(f"horizon_sweep S={S}: residuals of the "
+                               "wrong shape or not finite")
+        theirs = int(grec[f"s{S}_certified"].sum())
+        rsolved = int((grec[f"s{S}_status"] == 1).sum())
+        slack = round(SWEEP_SLACK_SHARE * B)
+        say("horizon_sweep", (
+            f"S={S:2d} {row['backend']:5s} route taken {taken:12s} "
+            f"K={row['K']} B={B}: SOLVED {row['solved']} (record "
+            f"{rsolved}), certified {row['certified']} (record {theirs}), "
+            f"mean iters {row['mean_sqp_iters']:.4f} (record "
+            f"{grec[f's{S}_iters'].mean():.4f}), wall "
+            f"{row['wall_s_per_batch']:.4f} s (solve {row['solve_s']:.4f},"
+            f" certify {row['certify_s']:.4f}; {row['walls']}), "
+            f"{row['solves_per_s']:.1f} solves/s, "
+            f"{row['certified_solves_per_s']:.1f} certified/s; the row's "
+            f"launches {row['launches']}"))
+        if row["certified"] < theirs - slack:
+            raise RuntimeError(f"horizon_sweep S={S} {row['backend']}: "
+                               f"certified {row['certified']}, fewer than "
+                               f"the record's {theirs} - {slack}")
+    micro = [sp.run_kernel_micro(S, b, sp.batch_of(S), dev)
+             for S, b in sp.sweep_rows() if b in sp.BACKENDS]
+    for m in micro:
+        if "skipped" in m:
+            continue
+        S, B, it = m["segments"], m["batch"], m["iters_per_epoch"]
+        tr = sp.sweep_problem(S, m["backend"], "cpu")[0]
+        m.update(bound_bbt_epoch(tr.bbt_structure(), B, it)
+                 if m["backend"] == "bbt" else
+                 bound_admm_epoch(B, tr.nlp.n, tr.nlp.m, it))
+        say("horizon_sweep", f"epoch micro (20 back-to-back, outside the "
+                             f"path's count): {m}")
+    return rows, micro, launches
+
+
+def phase_parity_sweep(grec, rows, dev, results):
+    """After the sweep: kernel 1 at S=4 (B=256) and S=8 (B=128), kernel 7
+    at K=252 (S=4, B=256) on the rows' first epochs by the F64 rule and on
+    random well-conditioned inputs of their shapes, and kernels 3-5 on the
+    S=4 certify's Newton matrices (K=252) by the residual gate (the
+    kernels hold K=252; the certify itself solves K > 206 by LU, as the
+    JAX package does)."""
+    import torch
+    from polympc_torch import scaling_point as sp
+    from polympc_torch.nlp.refine import newton_system
+    from polympc_torch.ops import admm_epoch as ae
+    from polympc_torch.ops import bbt_kernel as bk
+    from polympc_torch.parallel import pin_initial_state
+    rng = np.random.default_rng(29)
+    for S in (4, 8):
+        B = sp.batch_of(S)
+        qs, first = sp.first_epoch(S, "bbt", B, dev, grec[f"s{S}_x0s"])
+        st = qs.structure
+        epoch = bk.prepare_epoch(*first, st)
+        ep = (qs.sigma, qs.alpha, qs.check_every)
+        err = check_against_f64("bbt_epoch", bk.bbt_epoch,
+                                bk.bbt_epoch_plain, epoch, (st, *ep))
+        case = random_epoch(st, B, rng, dev)
+        rel = check_tight("bbt_epoch", bk.bbt_epoch, bk.bbt_epoch_plain,
+                          case, (st, *ep), EPOCH_RTOL)
+        relm = check_tight("bbt_epoch (mirror)", bk.bbt_epoch,
+                           bk.bbt_epoch_mirror, case, (st, *ep), MIRROR_RTOL)
+        results["bbt_epoch"][f"sweep_S{S}"] = {
+            **err, **timing(lambda: bk.bbt_epoch(*epoch, st, *ep),
+                            lambda: bk.bbt_epoch_plain(*epoch, st, *ep),
+                            None, bound_bbt_epoch(st, B, qs.check_every)),
+            **by_threads(bk, epoch, st, ep),
+            "random_rel_vs_plain": rel, "random_rel_vs_mirror": relm,
+            "shape": f"B={B} S={st.S} k={st.k} nx={st.nx} "
+                     f"iters={qs.check_every}"}
+        say("parity", f"bbt_epoch at the sweep's S={S} first epoch: "
+                      f"{results['bbt_epoch'][f'sweep_S{S}']}")
+    S, B = 4, sp.batch_of(4)
+    qs, epoch = sp.first_epoch(S, "dense", B, dev, grec["s4_x0s"])
+    n, m = epoch[1].shape[1], epoch[2].shape[1]
+    kw = dict(sigma=qs.sigma, alpha=qs.alpha, iters=qs.check_every)
+    kern, plain = epoch_fns(**kw)
+    err = check_against_f64("admm_epoch (sweep S=4)", kern, plain, epoch, ())
+    rel = check_tight("admm_epoch (sweep S=4 shape)", kern, plain,
+                      random_dense_epoch(n, m, B, rng, dev), (), EPOCH_RTOL)
+    results["admm_epoch"]["sweep_K252"] = {
+        **err, **timing(lambda: kern(*epoch), lambda: plain(*epoch), None,
+                        bound_admm_epoch(B, n, m, qs.check_every)),
+        "random_rel_vs_plain": rel,
+        "shape": f"B={B} n={n} m={m} iters={qs.check_every}",
+        "launch": epoch_launch(ae, n, m)}
+    say("parity", f"admm_epoch at the sweep's S=4 first epoch B={B} "
+                  f"K={n + m}: {results['admm_epoch']['sweep_K252']}")
+    lanes = next(ln for row, ln in rows
+                 if (row["segments"], row["backend"]) == (4, "bbt"))
+    tr, bounds, _, _ = sp.sweep_problem(4, "bbt", dev)
+    prm64 = tr.params(d=[0.05], t0=0.0, tf=2.0, dtype=torch.float64,
+                      device=dev)
+    b64 = bounds._replace(**{f: getattr(bounds, f).double()
+                             for f in bounds._fields})
+    bnd64, _ = pin_initial_state(tr, b64, torch.as_tensor(
+        grec["s4_x0s"], dtype=torch.float64, device=dev))
+    f32 = lambda k: torch.as_tensor(lanes[k], dtype=torch.float32,
+                                    device=dev)
+    Ms, rs = newton_system(tr.nlp, f32("x"), f32("lam"), bnd64, prm64,
+                           matrix_dtype=torch.float32)
+    M32, r32 = Ms.float().contiguous(), rs.float().contiguous()
+    out = refine_checks(Ms, M32, r32)
+    for name in ("ldlt_factor_solve", "ldlt_solve", "ldlt_factor"):
+        results[name]["sweep_K252"] = {**out[name],
+                                       "shape": f"B={B} K={r32.shape[1]}"}
+        say("parity", f"{name} at the sweep's S=4 certify matrices B={B} "
+                      f"K={r32.shape[1]}: {out[name]}")
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -2019,6 +2294,7 @@ def main():
     crec = dict(np.load(CSTR_REFERENCE))
     srec = dict(np.load(SOLVERS_REFERENCE))
     orec = dict(np.load(OCP_EXTRAS_REFERENCE))
+    grec = dict(np.load(SCALING_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
@@ -2029,8 +2305,10 @@ def main():
     paths = {"kite": phase_kite(ref, smi, "cuda"),
              "spline_qp": phase_spline(rec, smi, "cuda")[1],
              "frame_transform": phase_frame(rec, smi, "cuda")[1],
-             "race_car": phase_race_car(rec, smi, "cuda")[1],
-             "dist_kite_s8": phase_dist(drec, smi, "cuda")[1]}
+             "race_car": phase_race_car(rec, smi, "cuda")[1]}
+    _, dist_lanes, paths["dist_kite_s8"] = phase_dist(drec, smi, "cuda")
+    paths["dist_sharded"] = phase_dist_sharded(drec, dist_lanes, smi,
+                                               "cuda")[1]
     _, cstr_lanes, paths["cstr_b256"] = phase_cstr(crec, smi, "cuda")
     phase_parity_cstr_refine(crec, cstr_lanes, "cuda", parity)
     paths["mpc"] = phase_mpc(smi, "cuda")[1]
@@ -2042,6 +2320,9 @@ def main():
     _, ms_lanes, paths["kite_ms_b512"] = phase_kite_ms(orec, smi, "cuda")
     phase_parity_kite_ms_refine(orec, ms_lanes, "cuda", parity)
     paths["ocp_extras"] = phase_ocp_extras(orec, smi, "cuda")[1]
+    sweep_rows, _, paths["horizon_sweep"] = phase_horizon_sweep(
+        grec, smi, "cuda")
+    phase_parity_sweep(grec, sweep_rows, "cuda", parity)
     kernels = []
     for n, src, rep in KERNELS:
         by_path = {p: c[n] for p, c in paths.items()}

@@ -21,13 +21,13 @@ from __future__ import annotations
 import dataclasses
 import time
 
-import numpy as np
 import torch
 
 from polympc_torch.basis import Chebyshev
 from polympc_torch.control.nmpf import augment_ocp
-from polympc_torch.headline import KKT_TOL, bench_x0s
+from polympc_torch.headline import KITE_BOUNDS, KKT_TOL, bench_x0s
 from polympc_torch.models import kite_dynamics, kite_output, kite_path
+from polympc_torch.parallel.batch import local_rows
 from polympc_torch.parallel.dist_sqp import (
     DistSQPSettings, dist_bounds, dist_kkt_residual, dist_refine,
     dist_transcribe)
@@ -51,10 +51,7 @@ def dist_problem(device="cuda", dtype=torch.float32, kkt_solver="kernel",
     ocp = augment_ocp(lambda x, u: kite_dynamics(x, u), kite_output,
                       kite_path, nx=3, nu=1, ny=2)
     dtr = dist_transcribe(ocp, Chebyshev(5), S, 0.0, 2.0)
-    bounds = dist_bounds(dtr, ul=[-5.0, -10.0], uu=[5.0, 10.0],
-                         xl=[0.0, -np.pi / 2, -np.pi, -100.0, -100.0],
-                         xu=[np.pi / 2, np.pi / 2, np.pi, 100.0, 100.0],
-                         dtype=dtype, device=device)
+    bounds = dist_bounds(dtr, dtype=dtype, device=device, **KITE_BOUNDS)
     # eps_stat=1e-2: the float32 stationarity tolerance of bench.py's fused
     # path (the dist default 1e-3 is below float32 reach)
     settings = DistSQPSettings(max_iter=max_iter, admm_iters=400,
@@ -67,27 +64,31 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def certify(dtr, bounds, x0s, out):
+def certify(dtr, bounds, x0s, out, mesh=None):
     """The float64 certify of every lane: dist_refine(iters=4) from the
-    float32 solution, then the KKT residual (B,) float64."""
+    float32 solution (its segments split over ``mesh``'s "seg" group where
+    one is given), then the KKT residual (B,) float64."""
     b64 = pin_segment_head(dtr, bounds._replace(
         **{f: getattr(bounds, f).double() for f in bounds._fields}),
         x0s.double())
     args = [out[k].double() for k in SOL_KEYS]
-    ref = dist_refine(dtr, b64, *args, d=D, iters=4)
+    ref = dist_refine(dtr, b64, *args, d=D, iters=4, mesh=mesh)
     return dist_kkt_residual(dtr, b64, *ref, d=D)
 
 
-def batch_fn(B: int = 128, device="cuda", x0s=None, max_iter: int = 60):
+def batch_fn(B: int = 128, device="cuda", x0s=None, max_iter: int = 60,
+             mesh=None):
     """The timed unit: a function of no arguments that solves the batch
     (bench's x0 draw at B, or ``x0s``) in float32 through the kernel route
     and certifies it in float64, and returns ``(out, residual, solve_s,
     certify_s)`` after a synchronise.  ``max_iter`` cuts the SQP (the
-    warm-up and the trace)."""
+    warm-up and the trace).  With a ("dp", "seg") ``mesh`` the solve is
+    ``make_batch_dist_solver``'s on it and the certify refines on it;
+    ``out`` then holds this process's rows."""
     device = torch.device(device)
     dtr, bounds, settings = dist_problem(device, torch.float32, "kernel",
                                          max_iter)
-    solve = make_batch_dist_solver(dtr, bounds, settings, d=D)
+    solve = make_batch_dist_solver(dtr, bounds, settings, d=D, mesh=mesh)
     x0 = torch.as_tensor(bench_x0s(B) if x0s is None else x0s,
                          dtype=torch.float32, device=device)
 
@@ -95,9 +96,13 @@ def batch_fn(B: int = 128, device="cuda", x0s=None, max_iter: int = 60):
         t0 = time.perf_counter()
         W0, P0 = dtr.rollout_guess(x0, d=D)
         out = solve(x0, W0, P0)
+        if mesh is not None:
+            out = {k: None if v is None else v.to_local()
+                   for k, v in out.items()}
         _sync(device)
         t1 = time.perf_counter()
-        res = certify(dtr, bounds, x0, out)
+        res = certify(dtr, bounds, x0 if mesh is None else
+                      local_rows(x0, mesh), out, mesh=mesh)
         _sync(device)
         return out, res, t1 - t0, time.perf_counter() - t1
     return once
@@ -137,8 +142,8 @@ def run(B: int = 128, device="cuda", x0s=None):
     status_solved, kkt_residual_max, kkt_tol, wall_s_per_batch (solve +
     certify), solve_s, certify_s, mean_sqp_iters, mean_qp_iters, devices,
     platform and b1 (per route: status, iters, qp_iters, violation, ms);
-    ``lanes`` the per-lane numpy arrays residual, certified, status, iters
-    and qp_iters."""
+    ``lanes`` the per-lane numpy arrays residual, certified, status, iters,
+    qp_iters and the solution W."""
     device = torch.device(device)
     batch_fn(4, device, max_iter=2)()
     out, res_t, solve_s, cert_s = batch_fn(B, device, x0s)()
@@ -168,5 +173,6 @@ def summarize(out, res_t):
         "kkt_tol": KKT_TOL, "mean_sqp_iters": float(iters.mean()),
         "mean_qp_iters": float(qp_iters.mean())}
     lanes = {"residual": res, "certified": ok, "status": status,
-             "iters": iters, "qp_iters": qp_iters}
+             "iters": iters, "qp_iters": qp_iters,
+             "W": out["W"].cpu().numpy()}
     return extra, lanes

@@ -24,8 +24,8 @@ from polympc_torch.parallel import make_batch_solver, pin_initial_state
 from polympc_torch.qp.types import ADMMSettings
 from polympc_torch.utils import status as st
 
-__all__ = ["KKT_TOL", "bench_x0s", "kite_ocp", "kite_problem",
-           "certify", "certify_pinned", "run"]
+__all__ = ["KITE_BOUNDS", "KKT_TOL", "bench_x0s", "kite_ocp",
+           "kite_problem", "certify", "certify_pinned", "run"]
 
 KKT_TOL = 1e-6
 
@@ -48,14 +48,17 @@ def kite_ocp():
                        kite_path, nx=3, nu=1, ny=2)
 
 
+# the kite's input and state bounds (bench.py's)
+KITE_BOUNDS = dict(ul=[-5.0, -10.0], uu=[5.0, 10.0],
+                   xl=[0.0, -np.pi / 2, -np.pi, -100.0, -100.0],
+                   xu=[np.pi / 2, np.pi / 2, np.pi, 100.0, 100.0])
+
+
 def kite_problem(device="cuda", dtype=torch.float32):
     """bench.py's problem and solver settings: (tr, bounds, prm, settings)."""
     tr = transcribe(kite_ocp(), SegmentedBasis(Chebyshev(5), 2))
     prm = tr.params(d=[0.05], t0=0.0, tf=2.0, dtype=dtype, device=device)
-    bounds = ocp_bounds(tr, ul=[-5.0, -10.0], uu=[5.0, 10.0],
-                        xl=[0.0, -np.pi / 2, -np.pi, -100.0, -100.0],
-                        xu=[np.pi / 2, np.pi / 2, np.pi, 100.0, 100.0],
-                        dtype=dtype, device=device)
+    bounds = ocp_bounds(tr, dtype=dtype, device=device, **KITE_BOUNDS)
     settings = SQPSettings(
         hessian="exact", max_iter=9, reg="mirror",
         eps_prim=1e-3, eps_dual=1e-3, eps_viol=1e-3, eps_stat=1e-2,

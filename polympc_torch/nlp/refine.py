@@ -19,7 +19,7 @@ import torch
 from polympc_torch.nlp.sqp import (_constraints, derivative_fns,
                                    exact_hessian_fn)
 from polympc_torch.nlp.types import NLP, NLPBounds
-from polympc_torch.ops.ldlt import LDLT_MAX_K, ldlt_factor_solve, ldlt_solve
+from polympc_torch.ops.ldlt import ldlt_factor_solve, ldlt_solve
 from polympc_torch.utils.precision import full_precision
 
 __all__ = ["kkt_residual", "refine_solution", "newton_system",
@@ -102,13 +102,24 @@ def kkt_residual(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p=None
                            lbx, ubx)
 
 
+# The largest K whose float32 Newton-KKT solve takes the unpivoted LDL^T:
+# the JAX package's rule (its ``_newton_kkt_solve`` takes the LDL^T kernel
+# where ``pallas_fits(K)``, polympc_tpu/ops/ldlt.py:67, holds: K <= 206)
+# rather than all the kernels hold (``LDLT_MAX_K`` = 337).  Which lanes
+# the certify certifies depends on the route: on the horizon sweep's S=4
+# Newton matrices (K=252) the unpivoted factor with two IR sweeps leaves
+# residuals near 1e-7 where the pivoted LU reaches 1e-11 (PERF.md §6,
+# the horizon sweep).
+REFINE_LDLT_MAX_K = 206
+
+
 def _newton_kkt_solve(M, r, ir: int = 2):
     """Batched symmetric Newton-KKT solve.  float32 up to K =
-    ``LDLT_MAX_K``: unpivoted LDL^T factor + ``ir`` iterative-refinement
-    sweeps against the same matrix (residual at full float32); float64, or
-    a larger K (the JAX package's ``pallas_fits`` rule, decided by the
-    shape): ``torch.linalg.solve``."""
-    if M.dtype != torch.float32 or M.shape[-1] > LDLT_MAX_K:
+    ``REFINE_LDLT_MAX_K``: unpivoted LDL^T factor + ``ir``
+    iterative-refinement sweeps against the same matrix (residual at full
+    float32); float64, or a larger K (the JAX package's ``pallas_fits``
+    rule, decided by the shape): ``torch.linalg.solve``."""
+    if M.dtype != torch.float32 or M.shape[-1] > REFINE_LDLT_MAX_K:
         return torch.linalg.solve(M, r)
     x, F, d = ldlt_factor_solve(M, r)
     for _ in range(ir):

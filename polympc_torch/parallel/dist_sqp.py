@@ -1,6 +1,5 @@
 """Distributed constrained SQP for long-horizon OCPs (BASELINE config 5) —
-the port of polympc_tpu/parallel/dist_sqp.py without a device mesh (one
-card), batch-first.
+the port of polympc_tpu/parallel/dist_sqp.py, batch-first.
 
 Formulation: the duplicated-variable spectral-element form.  Every segment
 s owns a private block w_s = [X_s ((p+1), nx); U_s ((p+1), nu)] including
@@ -20,7 +19,10 @@ KKT has per-segment diagonal blocks, thin interface couplings and a global
 parameter border; each ADMM epoch factors it once by Schur condensation
 (parallel/horizon.py, whose per-segment inverses go through the
 ``ldlt_inverse`` kernel with ``kkt_solver="kernel"``) and runs
-``check_every`` iterations of batched matvecs against it.
+``check_every`` iterations of batched matvecs against it.  Given a
+``torch.distributed`` device mesh, that factor (and each refine solve) is
+split over the mesh's segment group while the SQP and ADMM state stay
+whole, and alike, on every process of the group.
 
 A lane stops when its own test passes: the SQP gathers the lanes still
 running before every iteration and the inner ADMM before every epoch, so
@@ -662,7 +664,7 @@ def _epoch_kkt(q, rho_base, settings: DistSQPSettings):
     return K, G, C, Dg, rho_loc, rbW, rbP, rho_if
 
 
-def _admm_epoch(dtr, q, s, settings, E, F, Ew, Fw):
+def _admm_epoch(dtr, q, s, settings, E, F, Ew, Fw, mesh, axis):
     """One epoch for the lanes of ``q``/``s``: the KKT for the lanes'
     current rho, one Schur factorisation, ``check_every`` iterations, the
     divergence guard, residuals, certificates and adaptive rho."""
@@ -676,7 +678,8 @@ def _admm_epoch(dtr, q, s, settings, E, F, Ew, Fw):
     K, G, C, Dg, rho_loc, rbW, rbP, rho_if = _epoch_kkt(q, rho_base,
                                                         settings)
     fac = schur_horizon_factor(K, E, F, G=G, C=C, Dg=Dg,
-                               kkt_solver=settings.kkt_solver)
+                               kkt_solver=settings.kkt_solver, mesh=mesh,
+                               axis=axis)
 
     xW, xP, zl, zi = s["xW"], s["xP"], s["zl"], s["zi"]
     qW, qP, yl, yi, ybW, ybP = (s[k] for k in ("qW", "qP", "yl", "yi",
@@ -764,7 +767,8 @@ def _admm_data(Hs, HsP, HPP, gW, gP, A, AP, al, au, lw, uw, lp, up, r_if,
 
 
 def _dist_admm(dtr, Hs, HsP, HPP, gW, gP, A, AP, al, au, lw, uw, lp, up,
-               r_if, y_loc0, y_if0, ybW0, ybP0, settings: DistSQPSettings):
+               r_if, y_loc0, y_if0, ybW0, ybP0, settings: DistSQPSettings,
+               mesh=None, axis: str = "seg"):
     """Inner boxADMM on every lane's segment-partitioned QP (the
     distributed box_admm.hpp:88-205): epochs of ``check_every`` iterations
     on one Schur factorisation, residual-based termination, adaptive rho
@@ -777,8 +781,10 @@ def _dist_admm(dtr, Hs, HsP, HPP, gW, gP, A, AP, al, au, lw, uw, lp, up,
     Shapes: Hs (B, S, kz, kz), HsP (B, S, kz, np), HPP (B, np, np),
     gW (B, S, kz), gP (B, np), A (B, S, ml, kz), AP (B, S, ml, np),
     al/au (B, S, ml), lw/uw (B, S, kz), lp/up (B, np), r_if (B, S-1, p_if).
-    Returns (dW, dP, y_loc, y_if, ybW, ybP, iters, status, rp, rd), per
-    lane.
+    With a ``mesh`` each epoch's Schur factor is split over its ``axis``
+    group (parallel/horizon.py); everything else runs alike on every
+    process.  Returns (dW, dP, y_loc, y_if, ybW, ybP, iters, status, rp,
+    rd), per lane.
     """
     S, kz, ml, p_if, np_ = dtr.S, dtr.kz, dtr.ml, dtr.p_if, dtr.ocp.np_
     B = gW.shape[0]
@@ -812,7 +818,8 @@ def _dist_admm(dtr, Hs, HsP, HPP, gW, gP, A, AP, al, au, lw, uw, lp, up,
             sub = {k: v.index_select(0, idx) for k, v in data.items()}
             n_sub = idx.numel()
         old = {k: v.index_select(0, idx) for k, v in s.items()}
-        new = _admm_epoch(dtr, sub, old, settings, E, F, Ew, Fw)
+        new = _admm_epoch(dtr, sub, old, settings, E, F, Ew, Fw, mesh,
+                          axis)
         for k, v in new.items():
             s[k] = s[k].index_copy(0, idx, v.to(s[k].dtype))
 
@@ -919,7 +926,8 @@ def first_epoch_kkt(dtr: DistTranscription, bounds: DistBounds, W0,
 @full_precision()
 def dist_sqp_solve(dtr: DistTranscription, bounds: DistBounds, W0, P0=None,
                    d=None, settings: DistSQPSettings = DistSQPSettings(),
-                   lam_loc0=None, lam_if0=None, lam_bw0=None, lam_bp0=None):
+                   mesh=None, axis: str = "seg", lam_loc0=None,
+                   lam_if0=None, lam_bw0=None, lam_bp0=None):
     """Solve a batch of duplicated-segment OCP NLPs with SQP + distributed
     boxADMM.
 
@@ -930,6 +938,11 @@ def dist_sqp_solve(dtr: DistTranscription, bounds: DistBounds, W0, P0=None,
     violation, qp_iters, qp_status, and trace ((B, trace_iters, 4) or None).
     The SQP mirrors nlp/sqp.py: l1-merit fixed-trial line search, QP bounds
     shifted by the iterate (sqp_base.hpp:586-593), relative termination.
+    With a ``mesh`` (a ``torch.distributed`` device mesh whose ``axis``
+    group the segments split over, S a multiple of its size) the outer SQP
+    and the ADMM state run alike on every process of the group and only
+    the inner ADMM's Schur factor is split (the JAX package's
+    ``shard_map`` path); every process returns the whole result.
     """
     if not settings.validate():
         raise ValueError("invalid settings")
@@ -954,7 +967,8 @@ def dist_sqp_solve(dtr: DistTranscription, bounds: DistBounds, W0, P0=None,
         qp = _qp_args(dtr, s, cl, cu, lbw, ubw, lbp, ubp, d, settings)
         gW, gP = qp[3], qp[4]
         (dW, dP, yl_qp, yi_qp, ybw_qp, ybp_qp, qp_it, qp_st, _,
-         _) = _dist_admm(dtr, *qp, lam_loc, lam_if, lam_bw, lam_bp, settings)
+         _) = _dist_admm(dtr, *qp, lam_loc, lam_if, lam_bw, lam_bp, settings,
+                         mesh, axis)
         fin = lambda v: torch.isfinite(v).reshape(b, -1).all(dim=1)
         ok = fin(dW) & fin(dP) & fin(yl_qp) & fin(yi_qp)
         dW = _pick(ok, dW, torch.zeros_like(dW))
@@ -1106,7 +1120,8 @@ def dist_kkt_residual(dtr: DistTranscription, bounds: DistBounds,
 @full_precision()
 def dist_refine(dtr: DistTranscription, bounds: DistBounds,
                 W, Pv, lam_loc, lam_if, lam_bw, lam_bp, d=None,
-                iters: int = 2, act_tol: float = 1e-3):
+                iters: int = 2, act_tol: float = 1e-3, mesh=None,
+                axis: str = "seg"):
     """Frozen-active-set Newton-KKT refinement of every lane.
 
     The refinement KKT (nlp/refine.py, symmetrised) has the segment-block +
@@ -1116,7 +1131,9 @@ def dist_refine(dtr: DistTranscription, bounds: DistBounds,
     rows' Newton duals; the border is [dP; dlam_box_P].  Inactive-row duals
     are zeroed up front so the masked coupling is exact and the KKT stays
     symmetric.  A lane keeps the refined point only if its KKT residual did
-    not grow.  Returns (W, P, lam_loc, lam_if, lam_bw, lam_bp).
+    not grow.  With a ``mesh`` every solve splits its segments over the
+    ``axis`` group (:func:`schur_horizon_solve`).  Returns (W, P, lam_loc,
+    lam_if, lam_bw, lam_bp).
     """
     ocp = dtr.ocp
     B, S, kz = W.shape
@@ -1200,10 +1217,11 @@ def dist_refine(dtr: DistTranscription, bounds: DistBounds,
             r_p = ap * (Pc - b_p) + (1.0 - ap) * lpc
             w, nu_if, g_sol = schur_horizon_solve(
                 Kb, rhs, Ew, Fw, -r_if, G=G, C=C, Dg=Dg,
-                bg=torch.cat([-gl_P, -r_p], dim=-1))
+                bg=torch.cat([-gl_P, -r_p], dim=-1), mesh=mesh, axis=axis)
             dP, dlbp = g_sol[:, :np_], g_sol[:, np_:]
         else:
-            w, nu_if = schur_horizon_solve(Kb, rhs, Ew, Fw, -r_if, G=G)
+            w, nu_if = schur_horizon_solve(Kb, rhs, Ew, Fw, -r_if, G=G,
+                                           mesh=mesh, axis=axis)
             dP = dlbp = Pc.new_zeros((B, 0))
         fin = lambda v: torch.isfinite(v).reshape(B, -1).all(dim=1)
         ok = fin(w) & fin(nu_if) & fin(dP)

@@ -17,20 +17,35 @@ unknowns):
 
 Shapes carry a leading lane axis B: K (B, S, k, k), b (B, S, k), c
 (B, S-1, p), G (B, S-1, p, p), C (B, S, k, a), Dg (B, a, a), bg (B, a);
-the picks E, F (p, k) are shared.  Every lane is its own system.  The
-sharded form of the JAX package (segments over a mesh, condensed blocks
-all_gather'ed) computes the same math and waits for the multi-card slice.
+the picks E, F (p, k) are shared.  Every lane is its own system.
+
+With a ``mesh`` (a ``torch.distributed`` device mesh: :func:`horizon_mesh`,
+or ``multihost.mesh_2d``), the per-segment elimination is split over the
+processes of its ``axis`` group, the JAX package's ``shard_map`` form.  The
+inputs are the whole arrays on every process (the caller's loop holds them
+replicated); each of the n processes eliminates its own S/n consecutive
+segments, the condensed blocks (XE, XF, w0, and XC with a border) are
+``all_gather``ed over the group, the small interface system is solved on
+every process alike, each back-substitutes its own segments, and w is
+``all_gather``ed so every process returns the whole (B, S, k) solution.
+c and C are inputs the processes already hold whole, so they cross no
+wire.  S must be a multiple of n: the JAX ``shard_map`` path asks for
+n == S, its GSPMD-composed ``make_batch_dist_solver`` for any multiple, and
+the port takes the composed rule for both.  Without a mesh the same code
+runs with every segment local and no collective.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from polympc_torch.ops.ldlt import ldlt_inverse
+from polympc_torch.parallel.mesh import mesh_device_type
 from polympc_torch.utils.precision import full_precision
 
 __all__ = ["schur_horizon_solve", "schur_horizon_factor",
-           "schur_horizon_apply", "assemble_dense_horizon"]
+           "schur_horizon_apply", "assemble_dense_horizon", "horizon_mesh"]
 
 KKT_SOLVERS = ("lu", "kernel")
 
@@ -138,18 +153,60 @@ def _picks(E, F, like):
             torch.as_tensor(F, dtype=like.dtype, device=like.device))
 
 
-def _back_sub(w0, XE, XF, XC, mu, g):
-    """w_i = w0_i - XE_i mu_i - XF_i mu_{i-1} [- XC_i g]."""
+def _back_sub(w0, XE, XF, XC, mu, g, lo=0):
+    """w_i = w0_i - XE_i mu_i - XF_i mu_{i-1} [- XC_i g] for the segments
+    lo .. lo + w0.shape[1] - 1."""
     pad = mu.new_zeros((mu.shape[0], 1, mu.shape[2]))
     mu_pad = torch.cat([pad, mu, pad], dim=1)
-    w = w0 - _mv(XE, mu_pad[:, 1:]) - _mv(XF, mu_pad[:, :-1])
+    hi = lo + w0.shape[1]
+    w = w0 - _mv(XE, mu_pad[:, lo + 1:hi + 1]) - _mv(XF, mu_pad[:, lo:hi])
     if XC is not None:
         w = w - _mv(XC, g[:, None, :])
     return w
 
 
+def horizon_mesh(n=None, axis: str = "seg"):
+    """1-D ``torch.distributed`` device mesh over the segment axis: one
+    process per rank of the default group (initialised first, e.g. by
+    ``multihost.initialize_multihost``); ``n`` must be that group's size
+    (every process takes part in the mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    world = dist.get_world_size()
+    if n is not None and n != world:
+        raise ValueError(f"horizon_mesh({n}): the process group has {world} "
+                         "processes, and every one is in the mesh")
+    return init_device_mesh(mesh_device_type(), (world,),
+                            mesh_dim_names=(axis,))
+
+
+def _segments(mesh, axis, S):
+    """(group, lo, hi): this process's consecutive segments lo .. hi - 1
+    of the ``axis`` group of ``mesh``, or (None, 0, S) without a mesh."""
+    if mesh is None:
+        return None, 0, S
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    if S % n:
+        raise ValueError(f"{S} segments over a {axis!r} group of {n} "
+                         "processes: S must be a multiple of the group size")
+    lo = mesh.get_local_rank(axis) * (S // n)
+    return group, lo, lo + S // n
+
+
+def _gather(t, group):
+    """The (B, S, ...) whole of every process's (B, S/n, ...) segments, in
+    group-rank order (the identity without a group)."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=1)
+
+
 @full_precision()
-def schur_horizon_solve(K, b, E, F, c, G=None, C=None, Dg=None, bg=None):
+def schur_horizon_solve(K, b, E, F, c, G=None, C=None, Dg=None, bg=None,
+                        mesh=None, axis: str = "seg"):
     """Solve every lane's segment-coupled KKT system by Schur condensation.
 
     K (B, S, k, k): per-segment symmetric (quasi-definite) KKT blocks.
@@ -161,23 +218,30 @@ def schur_horizon_solve(K, b, E, F, c, G=None, C=None, Dg=None, bg=None):
         continuity rows carry -diag(1/rho)).
     C/Dg/bg: optional global border: C (B, S, k, a), rows
         sum_s C_s' w_s + Dg g = bg with Dg (B, a, a), bg (B, a).
+    mesh/axis: split the elimination over the ``axis`` group of a device
+        mesh (see the module docstring); every process passes the whole
+        arrays and gets the whole answer.
 
     Returns (w (B, S, k), mu (B, S-1, p)), or (w, mu, g) with a border.
     """
     S = b.shape[1]
+    group, lo, hi = _segments(mesh, axis, S)
     E, F = _picks(E, F, K)
-    XE, XF, w0, XC = _condense_local(K, b, E, F, C)
-    Sloc = {"XE": XE, "XF": XF, "w0": w0, "c": c}
+    XE, XF, w0, XC = _condense_local(K[:, lo:hi], b[:, lo:hi], E, F,
+                                     None if C is None else C[:, lo:hi])
+    Sloc = {"XE": _gather(XE, group), "XF": _gather(XF, group),
+            "w0": _gather(w0, group), "c": c}
     if C is not None:
-        Sloc.update({"XC": XC, "C": C})
+        Sloc.update({"XC": _gather(XC, group), "C": C})
     mu, g = _interface_system(Sloc, E, F, S, G=G, Dg=Dg, bg=bg)
-    w = _back_sub(w0, XE, XF, XC, mu, g)
+    w = _gather(_back_sub(w0, XE, XF, XC, mu, g, lo), group)
     return (w, mu, g) if C is not None else (w, mu)
 
 
 @full_precision()
 def schur_horizon_factor(K, E, F, G=None, C=None, Dg=None,
-                         kkt_solver: str = "lu"):
+                         kkt_solver: str = "lu", mesh=None,
+                         axis: str = "seg"):
     """Everything right-hand-side independent of
     :func:`schur_horizon_solve`: the per-segment explicit inverses, the
     condensed blocks XE = K^{-1}E', XF = K^{-1}F' (and XC = K^{-1}C) and the
@@ -186,51 +250,59 @@ def schur_horizon_factor(K, E, F, G=None, C=None, Dg=None,
     iterations on one factorisation); every :func:`schur_horizon_apply` is
     then batched matvecs.
 
-    kkt_solver="kernel" inverts the B*S segment blocks with
-    ``ops.ldlt_inverse`` (the hand-written unpivoted LDL^T kernel for CUDA
-    float32, its plain version on the CPU; the quasi-definite KKT licenses
-    the unpivoted factor); "lu" with ``torch.linalg.inv`` (pivoted LU).
-    Returns an opaque dict for :func:`schur_horizon_apply`.
+    kkt_solver="kernel" inverts the segment blocks with ``ops.ldlt_inverse``
+    (the hand-written unpivoted LDL^T kernel for CUDA float32, its plain
+    version on the CPU; the quasi-definite KKT licenses the unpivoted
+    factor); "lu" with ``torch.linalg.inv`` (pivoted LU).  With a ``mesh``
+    each process inverts and condenses only its own segments (B * S/n
+    blocks), gathers the condensed blocks over the ``axis`` group and
+    inverts the interface matrix like every other process; the factor
+    carries the mesh and axis, and :func:`schur_horizon_apply` splits the
+    same way.  Returns an opaque dict for :func:`schur_horizon_apply`.
     """
     if kkt_solver not in KKT_SOLVERS:
         raise ValueError(f"kkt_solver={kkt_solver!r}: expected one of "
                          f"{KKT_SOLVERS}")
     S, k = K.shape[1], K.shape[2]
+    group, lo, hi = _segments(mesh, axis, S)
     E, F = _picks(E, F, K)
-    flat = K.reshape(-1, k, k)
+    Kl = K[:, lo:hi]
     inv = ldlt_inverse if kkt_solver == "kernel" else torch.linalg.inv
-    Kinv = inv(flat).reshape(K.shape)
+    Kinv = inv(Kl.reshape(-1, k, k)).reshape(Kl.shape)
     XE, XF = Kinv @ E.T, Kinv @ F.T
-    Sloc = {"XE": XE, "XF": XF}
+    Sloc = {"XE": _gather(XE, group), "XF": _gather(XF, group)}
     XC = None
     if C is not None:
-        XC = Kinv @ C
-        Sloc.update({"XC": XC, "C": C})
+        XC = Kinv @ C[:, lo:hi]
+        Sloc.update({"XC": _gather(XC, group), "C": C})
     M = _interface_matrix(Sloc, E, F, S, G=G, Dg=Dg)
     Minv = torch.linalg.inv(M) if M.shape[-1] else M
     return {"Kinv": Kinv, "XE": XE, "XF": XF, "XC": XC, "C": C,
             "Minv": Minv, "E": E, "F": F, "S": S, "p": E.shape[0],
-            "a": 0 if C is None else C.shape[-1]}
+            "a": 0 if C is None else C.shape[-1], "mesh": mesh,
+            "axis": axis, "group": group, "lo": lo, "hi": hi}
 
 
 @full_precision()
 def schur_horizon_apply(fac, b, c, bg=None):
     """Solve every lane's segment-coupled KKT for one right-hand side with a
-    :func:`schur_horizon_factor`: batched matvecs only.
+    :func:`schur_horizon_factor`: batched matvecs only (and, for a factor
+    made on a mesh, two ``all_gather``s over its group: w0 and w).
 
     Returns (w (B, S, k), mu (B, S-1, p)), or (w, mu, g) when the factor
     carries a border.
     """
     S, p, a = fac["S"], fac["p"], fac["a"]
-    E, F = fac["E"], fac["F"]
-    w0 = _mv(fac["Kinv"], b)
-    Sloc = {"w0": w0, "c": c}
+    E, F, group, lo = fac["E"], fac["F"], fac["group"], fac["lo"]
+    w0 = _mv(fac["Kinv"], b[:, lo:fac["hi"]])
+    Sloc = {"w0": _gather(w0, group), "c": c}
     if a:
         Sloc["C"] = fac["C"]
     r = _interface_rhs(Sloc, E, F, S, bg=bg if a else None)
     sol = _mv(fac["Minv"], r) if r.shape[-1] else r
     mu, g = _interface_split(sol, S, p, a)
-    w = _back_sub(w0, fac["XE"], fac["XF"], fac["XC"], mu, g)
+    w = _gather(_back_sub(w0, fac["XE"], fac["XF"], fac["XC"], mu, g, lo),
+                group)
     return (w, mu, g) if a else (w, mu)
 
 

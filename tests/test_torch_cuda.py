@@ -160,7 +160,7 @@ def _diag_dominant(B, K, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [8, 132, 200])
+@pytest.mark.parametrize("K", [8, 132, 200, 252])
 def test_ldlt_kernels_match_plain(K, dev):
     A, b = _diag_dominant(64, K, K)
     M = torch.as_tensor(A, dtype=torch.float32, device=dev)
@@ -207,8 +207,9 @@ def _dense_epoch_case(n, m, B, dev, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,m", [(32, 15), (77, 55), (47, 0)],
-                         ids=["spline-shape", "K132", "box-only"])
+@pytest.mark.parametrize("n,m", [(32, 15), (77, 55), (47, 0), (147, 105)],
+                         ids=["spline-shape", "K132", "box-only",
+                              "sweep-K252"])
 def test_admm_epoch_kernel_matches_plain(n, m, dev):
     args = _dense_epoch_case(n, m, 64, dev, seed=n + m)
     kw = dict(sigma=SIGMA, alpha=ALPHA, iters=25)
@@ -617,3 +618,75 @@ def test_kite_ms_path_on_the_card(dev):
     for k in ("admm_epoch", "ldlt_factor_solve", "ldlt_solve"):
         assert _build.LAUNCHES[k] > 0, k
     assert (res <= op.KKT_TOL).sum().item() >= 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [125, 252])
+def test_residual_gate_on_a_factor_at_the_pivot_floor(K, dev):
+    """chip_smoke.py's residual gate with the LDL^T kernel on a system
+    whose unpivoted factor pivots at the 1e-6 floor (tests/_pivot_floor.py):
+    the kernel's factor is the plain one bit for bit, its solution passes
+    the gate, some lanes only by test (b) (against the float64 substitution
+    on the same factor), and a perturbed substitution is refused."""
+    import sys
+    from pathlib import Path
+    from _pivot_floor import pivot_floor_system
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    M, b = pivot_floor_system(64, K)
+    Ms = torch.as_tensor(M, device=dev)
+    M32 = Ms.float().contiguous()
+    r32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
+    rs = r32.double()
+    xk, Fk, dk = ldlt.ldlt_factor_solve(M32, r32)
+    xp, Fp, dp = ldlt.ldlt_factor_solve_plain(M32, r32)
+    r64 = cs.rel_residual(Ms, ldlt.ldlt_solve_plain(Fp.double(),
+                                                    dp.double(), rs), rs)
+    torch.cuda.synchronize()
+    assert dp.abs().min().item() < 2e-6
+    cs.same_factor("ldlt_factor_solve", Fk, dk, Fp, dp)
+    rp = cs.rel_residual(Ms, xp, rs)
+    counts = cs.check_residuals("ldlt_factor_solve",
+                                cs.rel_residual(Ms, xk, rs), rp, r64)
+    assert counts["gate_by_b_only"] >= 1, counts
+    noise = torch.as_tensor(np.random.default_rng(1).normal(size=xk.shape),
+                            dtype=xk.dtype, device=dev)
+    with pytest.raises(RuntimeError, match="pass neither"):
+        cs.check_residuals("perturbed", cs.rel_residual(
+            Ms, xk * (1.0 + 1e-2 * noise), rs), rp, r64)
+
+
+@pytest.mark.cuda
+def test_schur_solve_on_a_one_rank_nccl_group(dev):
+    """schur_horizon_solve and factor + apply on a one-rank NCCL group's
+    ("seg",) mesh equal the mesh-less ones (the same operations, the
+    condensed blocks gathered over one rank)."""
+    import torch.distributed as dist
+    from polympc_torch.multichip_point import free_port
+    from polympc_torch.parallel import horizon as th
+    from polympc_torch.parallel import initialize_multihost
+    rng = np.random.default_rng(3)
+    S, k, p, B = 4, 12, 3, 2
+    A = rng.normal(size=(B, S, k, k))
+    K = torch.as_tensor(A @ A.transpose(0, 1, 3, 2) / k + np.eye(k),
+                        device=dev)
+    b = torch.as_tensor(rng.normal(size=(B, S, k)), device=dev)
+    c = torch.as_tensor(rng.normal(size=(B, S - 1, p)), device=dev)
+    E = np.zeros((p, k))
+    F = np.zeros((p, k))
+    E[:, k - p:] = np.eye(p)
+    F[:, :p] = -np.eye(p)
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = th.horizon_mesh()
+        for got, want in zip(th.schur_horizon_solve(K, b, E, F, c, mesh=mesh),
+                             th.schur_horizon_solve(K, b, E, F, c)):
+            assert torch.equal(got, want)
+        fac = th.schur_horizon_factor(K, E, F, mesh=mesh)
+        for got, want in zip(th.schur_horizon_apply(fac, b, c),
+                             th.schur_horizon_apply(
+                                 th.schur_horizon_factor(K, E, F), b, c)):
+            assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()

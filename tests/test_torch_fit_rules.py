@@ -16,8 +16,10 @@ never falls back on a failed launch.  Checked here:
     too-large structure, and for the LU solver;
   * a QP whose structure does not fit solves as the same QP without a
     structure does (float64), and as the LU epoch does;
-  * a float32 refine solve at K=338 takes ``torch.linalg.solve`` and never
-    the LDL^T kernels' entry point, K=337 takes the LDL^T route.
+  * a float32 refine solve above ``refine.REFINE_LDLT_MAX_K`` (K=207)
+    takes ``torch.linalg.solve`` and never the LDL^T kernels' entry point,
+    K=206 takes the LDL^T route; that bound is the JAX package's
+    ``pallas_fits`` rule for its refine solve.
 """
 import dataclasses
 
@@ -154,13 +156,13 @@ def test_refine_route_by_shape(monkeypatch):
     def no_kernel(*a, **k):
         raise AssertionError("ldlt_factor_solve called")
     monkeypatch.setattr(refine, "ldlt_factor_solve", no_kernel)
-    M, r = _symmetric(LDLT_MAX_K + 1, 1)
+    M, r = _symmetric(refine.REFINE_LDLT_MAX_K + 1, 1)
     x = refine._newton_kkt_solve(torch.tensor(M, dtype=torch.float32),
                                  torch.tensor(r, dtype=torch.float32))
     x64 = np.linalg.solve(M[0], r[0])
     np.testing.assert_allclose(x[0].double().numpy(), x64, rtol=0,
                                atol=1e-5 * np.abs(x64).max())
-    M, r = _symmetric(LDLT_MAX_K, 2)
+    M, r = _symmetric(refine.REFINE_LDLT_MAX_K, 2)
     with pytest.raises(AssertionError, match="ldlt_factor_solve called"):
         refine._newton_kkt_solve(torch.tensor(M, dtype=torch.float32),
                                  torch.tensor(r, dtype=torch.float32))
@@ -168,3 +170,13 @@ def test_refine_route_by_shape(monkeypatch):
     x = refine._newton_kkt_solve(torch.tensor(M), torch.tensor(r))
     np.testing.assert_allclose(x[0].numpy(), np.linalg.solve(M[0], r[0]),
                                rtol=1e-10)
+
+
+def test_refine_route_bound_is_the_jax_rule():
+    """The refine solve's LDL^T bound is the JAX package's ``pallas_fits``
+    rule for its ``_newton_kkt_solve`` (a VMEM bound there), inside what
+    the port's kernels hold."""
+    from polympc_tpu.ops.ldlt import pallas_fits
+    K = refine.REFINE_LDLT_MAX_K
+    assert pallas_fits(K) and not pallas_fits(K + 1)
+    assert K <= LDLT_MAX_K

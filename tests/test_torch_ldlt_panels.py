@@ -18,7 +18,11 @@ warp.  Held here:
     below LDLT_RES_FLOOR), on the lanes that rule holds;
   * the launch rules: packed offsets, shared memory and blocks per SM, the
     largest K the LDL^T kernels hold, the dense epoch's block and which K
-    runs one instance per warp.
+    runs one instance per warp;
+  * chip_smoke.py's residual gate (``check_residuals``) on a system whose
+    factor pivots at the 1e-6 floor: the mirror passes, some lanes only by
+    test (b) against the float64 substitution on the same factor, and a
+    perturbed substitution is refused.
 """
 import numpy as np
 import pytest
@@ -140,3 +144,51 @@ def test_launch_rules():
     assert -(-4096 // 4) <= 132 * 8
     assert ae.epoch_kernel_fits(200, 140) and not ae.epoch_kernel_fits(
         200, 141)
+
+
+def _gate_case(K):
+    """chip_smoke.py's residual-gate inputs on a system whose factor pivots
+    at the 1e-6 floor (tests/_pivot_floor.py): (Ms float64, the float64
+    right-hand sides, the plain float32 factor, the plain float32
+    solution, the float64 substitution's residual on that factor)."""
+    import sys
+    from pathlib import Path
+    from _pivot_floor import pivot_floor_system
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    M, b = pivot_floor_system(64, K)
+    Ms = torch.tensor(M)
+    r32 = torch.tensor(b).float()
+    xp, Fp, dp = ldlt.ldlt_factor_solve_plain(Ms.float(), r32)
+    rs = r32.double()
+    r64 = cs.rel_residual(Ms, ldlt.ldlt_solve_plain(Fp.double(),
+                                                    dp.double(), rs), rs)
+    return cs, Ms, rs, Fp, dp, xp, r64
+
+
+@pytest.mark.parametrize("K", [125, 252])
+def test_residual_gate_passes_the_exact_substitution(K):
+    """chip_smoke.py's one residual gate on every path: where the factor
+    pivots at the regularisation floor, the kernels' substitution
+    (``panel_solve_mirror``, which the card's kernel equals bit for bit)
+    passes, some lanes only by test (b), against the float64 substitution
+    on the same factor; test (a) alone, against the plain float32 solve,
+    would refuse them."""
+    cs, Ms, rs, Fp, dp, xp, r64 = _gate_case(K)
+    assert dp.abs().min().item() < 2e-6
+    xm = ldlt.panel_solve_mirror(Fp, dp, rs.float())
+    counts = cs.check_residuals("mirror", cs.rel_residual(Ms, xm, rs),
+                                cs.rel_residual(Ms, xp, rs), r64)
+    assert counts["gate_by_b_only"] >= 1, counts
+    assert counts["gate_by_a"] < counts["gate_live"], counts
+
+
+@pytest.mark.parametrize("K", [125, 252])
+def test_residual_gate_refuses_a_perturbed_substitution(K):
+    cs, Ms, rs, Fp, dp, xp, r64 = _gate_case(K)
+    xm = ldlt.panel_solve_mirror(Fp, dp, rs.float())
+    noise = np.random.default_rng(1).normal(size=xm.shape)
+    bad = xm * (1.0 + 1e-2 * torch.as_tensor(noise, dtype=xm.dtype))
+    with pytest.raises(RuntimeError, match="pass neither"):
+        cs.check_residuals("perturbed", cs.rel_residual(Ms, bad, rs),
+                           cs.rel_residual(Ms, xp, rs), r64)

@@ -1,8 +1,10 @@
 """Package-level checks of the PyTorch port (polympc_torch):
 
   * no file of the port, and not chip_smoke.py, trace_port.py,
-    kernel_ab.py or ldlt_solve_orders.py, imports JAX or the JAX package
-    (an AST scan): the card's machine has no JAX;
+    kernel_ab.py, ldlt_solve_orders.py or the test helpers that run
+    without JAX (the gloo ranks' tests/_torch_dist_worker.py,
+    tests/_pivot_floor.py), imports JAX or the JAX package (an AST scan):
+    the card's machine has no JAX;
   * nor does one name a path under the JAX package in a string literal
     other than a docstring (a file it could read, such as the JAX
     package's native sources), a ``file.py:line`` citation apart;
@@ -46,10 +48,11 @@ def _imports(path):
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "trace_port.py",
-                                         ROOT / "kernel_ab.py",
-                                         ROOT / "ldlt_solve_orders.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "trace_port.py",
+        ROOT / "kernel_ab.py", ROOT / "ldlt_solve_orders.py",
+        ROOT / "tests" / "_torch_dist_worker.py",
+        ROOT / "tests" / "_pivot_floor.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -315,7 +318,17 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.ocp_extras_point.first_epoch",
                  "polympc_torch.ocp_extras_point.certify_system",
                  "polympc_torch.ocp_extras_point.pendulum_data",
-                 "polympc_torch.ocp_extras_point.ocp_extras"):
+                 "polympc_torch.ocp_extras_point.ocp_extras",
+                 "polympc_torch.parallel.multihost.initialize_multihost",
+                 "polympc_torch.multichip_point.launch",
+                 "polympc_torch.multichip_point.stages",
+                 "polympc_torch.multichip_point.run",
+                 "polympc_torch.scaling_point.sweep_problem",
+                 "polympc_torch.scaling_point.batch_fn",
+                 "polympc_torch.scaling_point.run_point",
+                 "polympc_torch.scaling_point.sweep",
+                 "polympc_torch.scaling_point.first_epoch",
+                 "polympc_torch.scaling_point.run_kernel_micro"):
         assert qual in seen, qual
 
 
