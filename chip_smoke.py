@@ -100,6 +100,22 @@ Phases, each printing its own lines and raising on failure:
          measured epoch kernels (20 back to back), kernel 1 at S=4 and
          S=8, kernel 7 at K=252 on the rows' first epochs and the LDL^T
          kernels on the S=4 certify's matrices (K=252);
+       long_horizon (polympc_torch/long_horizon_point.py): the
+         partitioned full-space Newton engine (parallel/long_horizon.py)
+         on the damped pendulum, S=512 Chebyshev(4) segments of 0.5 s,
+         B=32 lanes, 12 float64 Newton steps (no kernel: the segment
+         blocks by torch.func, the Schur interface solve by
+         torch.linalg.solve), a warm-up then the median of 3 solves and
+         one more split by CUDA events into the segment blocks and the
+         interface solve, against the JAX package's record
+         (tests/data/long_horizon_jax_cpu.npz): every lane's final defect
+         <= 1e-7 and continuity <= 1e-10, the boundary states of every
+         lane and the whole Z of lanes 0-1 within 1e-7; then one Newton
+         step of lanes 0-3 on horizon_mesh(1) in a one-rank NCCL group,
+         equal bit for bit to the mesh-less step;
+     and, outside every path's count, the lane-major LDL^T entry points
+     (ldlt_*_lanes, the JAX package's (K, K, B) layout) bit for bit
+     against the batch-first calls at K=132, B=512;
   5. a JSON line of the kernels, then the result line
      {"ok": true, "device": {...}}.
 
@@ -109,6 +125,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -124,6 +141,8 @@ SOLVERS_REFERENCE = os.path.join(ROOT, "tests", "data",
                                  "solvers_jax_cpu.npz")
 OCP_EXTRAS_REFERENCE = os.path.join(ROOT, "tests", "data",
                                     "ocp_extras_jax_cpu.npz")
+LONG_HORIZON_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                      "long_horizon_jax_cpu.npz")
 SCALING_REFERENCE = os.path.join(ROOT, "tests", "data",
                                  "scaling_jax_cpu.npz")
 
@@ -251,6 +270,12 @@ OCP_EXTRAS_COST_RTOL = 1e-6
 # operations, gathered; bit for bit is expected on one rank).
 SWEEP_SLACK_SHARE = 0.02
 DIST_SHARDED_RTOL = 1e-6
+# the long-horizon batch's gates: the record's final defects reach 3.6e-8
+# (the delta = 1e-8 regularisation's floor) and its continuity 1.1e-15
+LH_DEFECT_TOL = 1e-7
+LH_CONTINUITY_TOL = 1e-10
+LH_RECORD_ATOL = 1e-7
+LH_SHARDED_LANES = 4
 # Published peaks of one H100 SXM: float32 outside the tensor cores and HBM
 # bandwidth (the bound of a kernel is the larger of flops and bytes over
 # these).
@@ -1303,7 +1328,6 @@ def check_factor_against_f64(name, Fk, dk, M32):
 def run_path(name, fn, must_launch):
     """Drive one main path with the launch counts set to 0 just before it
     and read just after; raise if it never launched one of its kernels."""
-    import time
     from polympc_torch.ops import _build
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1580,7 +1604,6 @@ def mpc_path(dev):
     reference's optimum, and examples/cstr_nmpc.py's closed loop (12
     steps, RK4 plant): every step SOLVED or stopped at max_iter at the
     primal optimum, and the error falling every step."""
-    import time
     import torch
     from polympc_torch.basis import Chebyshev, SegmentedBasis
     from polympc_torch.control import MPC
@@ -2266,6 +2289,126 @@ def phase_parity_sweep(grec, rows, dev, results):
                       f"K={r32.shape[1]}: {out[name]}")
 
 
+def phase_long_horizon(lrec, card, dev):
+    """The long-horizon batch (S=512, B=32, float64) against the JAX
+    record, then its one-rank NCCL Newton step (lanes 0-3) against the
+    mesh-less step, bit for bit.  The path launches no kernel of the
+    port."""
+    from polympc_torch import long_horizon_point as lp
+    if not np.array_equal(lp.lane_x0s(), lrec["x0s"]):
+        raise RuntimeError("long_horizon: the record's x0s are not the "
+                           "harness's draw")
+    (summary, lanes), launches = run_path(
+        "long_horizon", lambda: lp.run(device=dev), ())
+    if any(launches.values()):
+        raise RuntimeError(f"long_horizon launched kernels: {launches}")
+    defect, cont = lanes["defect"][-1], lanes["continuity"][-1]
+    diffs = {
+        "boundary": float(np.abs(lanes["boundary"]
+                                 - lrec["boundary"]).max()),
+        "Z01": float(np.abs(lanes["Z"][:2] - lrec["Z01"]).max()),
+        "defect_hist": float(np.abs(lanes["defect"] - lrec["defect"]).max()),
+        "continuity_hist": float(np.abs(lanes["continuity"]
+                                        - lrec["continuity"]).max())}
+    say("long_horizon", f"{card}: {json.dumps(summary)}")
+    say("long_horizon", (
+        f"{card}: final defect max {defect.max():.3e} (record "
+        f"{lrec['defect'][-1].max():.3e}), continuity max {cont.max():.3e} "
+        f"(record {lrec['continuity'][-1].max():.3e}); against the record: "
+        f"{diffs}; per-lane final defect {defect.tolist()}"))
+    if not (np.isfinite(lanes["Z"]).all() and lanes["Z"].shape
+            == (lp.LANES, lp.SEGMENTS, lrec["Z01"].shape[-1])):
+        raise RuntimeError("long_horizon: Z not finite or of the wrong "
+                           "shape")
+    if not (defect.max() <= LH_DEFECT_TOL
+            and cont.max() <= LH_CONTINUITY_TOL
+            and diffs["boundary"] <= LH_RECORD_ATOL
+            and diffs["Z01"] <= LH_RECORD_ATOL):
+        raise RuntimeError(f"long_horizon: a gate failed (defect <= "
+                           f"{LH_DEFECT_TOL}, continuity <= "
+                           f"{LH_CONTINUITY_TOL}, boundary and Z01 within "
+                           f"{LH_RECORD_ATOL} of the record)")
+    summary.update(diffs, sharded=long_horizon_sharded(lrec, card, dev))
+    return summary, launches
+
+
+def long_horizon_sharded(lrec, card, dev):
+    """One Newton step of the first lanes of the long-horizon batch from
+    their constant guess, on horizon_mesh(1) in a one-rank NCCL group
+    (this rank builds every segment's block and gathers over a group of
+    one), against the mesh-less step: Z, LAM and cont bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from polympc_torch import long_horizon_point as lp
+    from polympc_torch.multichip_point import free_port
+    from polympc_torch.parallel import horizon_mesh, initialize_multihost
+    from polympc_torch.parallel.long_horizon import long_horizon_newton_step
+    lh = lp.long_horizon()
+    x0 = torch.as_tensor(lrec["x0s"][:LH_SHARDED_LANES],
+                         dtype=torch.float64, device=dev)
+    Z = lh.initial_guess(x0, device=dev)
+    LAM = Z.new_zeros((*Z.shape[:-1], lh.ne))
+    plain = long_horizon_newton_step(lh, Z, LAM, x0)
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != backend:
+            raise RuntimeError(f"long_horizon: the group runs "
+                               f"{dist.get_backend()}, not {backend}")
+        mesh = horizon_mesh(1)
+        long_horizon_newton_step(lh, Z, LAM, x0, mesh=mesh)
+        sync()
+        t0 = time.perf_counter()
+        sharded = long_horizon_newton_step(lh, Z, LAM, x0, mesh=mesh)
+        sync()
+        secs = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    same = {n: bool(torch.equal(a, b))
+            for n, a, b in zip(("Z", "LAM", "cont"), sharded, plain)}
+    say("long_horizon", f"{card}: one {backend} rank, horizon_mesh(1), lanes "
+                        f"0-{LH_SHARDED_LANES - 1}: one Newton step "
+                        f"{secs * 1e3:.3f} ms; equal to the mesh-less step "
+                        f"bit for bit {same}; one card: several cards did "
+                        f"not run")
+    if not all(same.values()):
+        raise RuntimeError("long_horizon: the sharded Newton step differs "
+                           "from the mesh-less step")
+    return {"step_ms": secs * 1e3, "bitwise": same}
+
+
+def phase_parity_lanes(dev):
+    """The lane-major LDL^T entry points (the JAX package's (K, K, B)
+    layout) against the batch-first calls on the same matrices, bit for
+    bit, at the kite refine's K=132, B=512 (outside every path's
+    count)."""
+    import torch
+    from polympc_torch.ops import ldlt
+    rng = np.random.default_rng(37)
+    M, b = diag_dominant(512, 132, rng, dev)
+    Ml, bl = M.movedim(0, -1).contiguous(), b.movedim(0, -1).contiguous()
+    F, d = ldlt.ldlt_factor(M)
+    x, F2, d2 = ldlt.ldlt_factor_solve(M, b)
+    checks = {
+        "ldlt_factor_lanes": (ldlt.ldlt_factor_lanes(Ml), (F, d)),
+        "ldlt_factor_solve_lanes": (ldlt.ldlt_factor_solve_lanes(Ml, bl),
+                                    (x, F2, d2)),
+        "ldlt_solve_lanes": ((ldlt.ldlt_solve_lanes(
+            F.movedim(0, -1), d.movedim(0, -1), bl),),
+            (ldlt.ldlt_solve(F, d, b),)),
+        "ldlt_inverse_lanes": ((ldlt.ldlt_inverse_lanes(Ml),),
+                               (ldlt.ldlt_inverse(M),))}
+    same = {n: all(bool(torch.equal(g, w.movedim(0, -1)))
+                   for g, w in zip(got, want))
+            for n, (got, want) in checks.items()}
+    sync()
+    say("parity", f"lane-major LDL^T entry points against the batch-first "
+                  f"calls at B=512 K=132, bit for bit: {same}")
+    if not all(same.values()):
+        raise RuntimeError("a lane-major LDL^T entry point differs from "
+                           "its batch-first call")
+
+
 KERNELS = (
     ("bbt_epoch", "polympc_torch/csrc/bbt_epoch.cu",
      "polympc_tpu/ops/bbt_kernel.py:473"),
@@ -2286,6 +2429,7 @@ KERNELS = (
 
 def main():
     import torch
+    start = time.perf_counter()
     card, smi = phase_device()
     import_port()
     ref = dict(np.load(REFERENCE))
@@ -2295,6 +2439,7 @@ def main():
     srec = dict(np.load(SOLVERS_REFERENCE))
     orec = dict(np.load(OCP_EXTRAS_REFERENCE))
     grec = dict(np.load(SCALING_REFERENCE))
+    lrec = dict(np.load(LONG_HORIZON_REFERENCE))
     phase_build()
     parity = phase_parity(ref, "cuda")
     phase_parity_dense("cuda", parity)
@@ -2323,12 +2468,15 @@ def main():
     sweep_rows, _, paths["horizon_sweep"] = phase_horizon_sweep(
         grec, smi, "cuda")
     phase_parity_sweep(grec, sweep_rows, "cuda", parity)
+    paths["long_horizon"] = phase_long_horizon(lrec, smi, "cuda")[1]
+    phase_parity_lanes("cuda")
     kernels = []
     for n, src, rep in KERNELS:
         by_path = {p: c[n] for p, c in paths.items()}
         kernels.append({"name": n, "route": "cuda", "source": src,
                         "replaces": rep, "launches": sum(by_path.values()),
                         "launches_by_path": by_path, **parity[n]})
+    say("smoke", f"{smi}: the run took {time.perf_counter() - start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,10 @@ reproduce the reference *as coded*, like the JAX model.
 Figure-eight path (kite_control_test.cpp:15-29):
     theta_p(s) = pi/6 + 0.2 sin(2 s),  phi_p(s) = 0.8 cos(s).
 
+``kite_ocp`` is the plain tracking OCP on this model (the reference
+output passed as static data d); ``headline.kite_ocp`` is bench.py's
+augmented path-following NMPF kite.
+
 The functions act on one node (x (3,), u (1,)); transcription maps them over
 nodes and lanes with ``torch.func.vmap``.
 """
@@ -19,7 +23,9 @@ import math
 
 import torch
 
-__all__ = ["kite_dynamics", "kite_output", "kite_path"]
+from polympc_torch.ocp.ocp import OCP
+
+__all__ = ["kite_dynamics", "kite_output", "kite_path", "kite_ocp"]
 
 
 def kite_dynamics(x, u, L: float = 5.0, E: float = 5.0, ws: float = 3.0):
@@ -55,3 +61,22 @@ def kite_path(s):
     h = math.pi / 6.0
     a = 0.2
     return torch.stack([h + a * torch.sin(2.0 * s), 4.0 * a * torch.cos(s)])
+
+
+def kite_ocp(q: float = 1.0, r: float = 0.1) -> OCP:
+    """Plain tracking OCP on the kite (for batched-solve benchmarks):
+    L = q*||output(x) - ref||^2 + r*u^2, Mayer q*||output(x) - ref||^2,
+    ref passed as static data d (nd = 2)."""
+    def dynamics(x, u, p, d, t):
+        return kite_dynamics(x, u)
+
+    def lagrange(x, u, p, d, t):
+        e = kite_output(x) - d[:2]
+        return q * (e @ e) + r * (u @ u)
+
+    def mayer(x, p, d):
+        e = kite_output(x) - d[:2]
+        return q * (e @ e)
+
+    return OCP(dynamics=dynamics, nx=3, nu=1, nd=2,
+               lagrange=lagrange, mayer=mayer)

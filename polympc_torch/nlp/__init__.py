@@ -1,4 +1,6 @@
-from polympc_torch.nlp.types import NLP, NLPBounds, SQPSettings, SQPSolution
+from polympc_torch.nlp.types import (
+    NLP, NLPBounds, SQPSettings, SQPSolution, unbounded,
+)
 from polympc_torch.nlp.hessian import (
     regularize, bfgs_update, sr1_update, BlockHessian,
     block_hessian_identity, block_hessian_matvec, block_bfgs_update,
@@ -12,7 +14,8 @@ from polympc_torch.nlp.tr import (
     trust_region_solve, projected_gradient_solve, TRSolution,
 )
 
-__all__ = ["NLP", "NLPBounds", "SQPSettings", "SQPSolution", "regularize",
+__all__ = ["NLP", "NLPBounds", "SQPSettings", "SQPSolution", "unbounded",
+           "regularize",
            "bfgs_update", "sr1_update", "BlockHessian",
            "block_hessian_identity", "block_hessian_matvec",
            "block_bfgs_update", "assemble_block_hessian",

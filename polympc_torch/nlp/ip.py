@@ -49,7 +49,7 @@ from torch.func import grad, jacrev, vmap
 
 from polympc_torch.nlp.hessian import regularize
 from polympc_torch.nlp.sqp import _constraints, derivative_fns
-from polympc_torch.nlp.types import NLP, NLPBounds
+from polympc_torch.nlp.types import NLP, NLPBounds, unbounded
 from polympc_torch.qp.ip import _amax, _mv
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
@@ -125,12 +125,7 @@ def nlp_ip_solve(nlp: NLP, x0, p=None, bounds: Optional[NLPBounds] = None,
     nw, me = n + ni, ne + ni
     dt, dev = x0.dtype, x0.device
     if bounds is None:
-        inf = float("inf")
-        bounds = NLPBounds(
-            lbx=torch.full((n,), -inf, dtype=dt, device=dev),
-            ubx=torch.full((n,), inf, dtype=dt, device=dev),
-            gl=torch.full((ni,), -inf, dtype=dt, device=dev),
-            gu=torch.full((ni,), inf, dtype=dt, device=dev))
+        bounds = unbounded(nlp, dt, dev)
     gl = bounds.gl.to(dt).expand(B, ni)
     gu = bounds.gu.to(dt).expand(B, ni)
 

@@ -29,7 +29,9 @@ from polympc_torch.nlp.hessian import (
     BlockHessian, assemble_block_hessian, bfgs_update, block_bfgs_update,
     block_hessian_identity, regularize, sr1_update,
 )
-from polympc_torch.nlp.types import NLP, NLPBounds, SQPSettings, SQPSolution
+from polympc_torch.nlp.types import (
+    NLP, NLPBounds, SQPSettings, SQPSolution, unbounded,
+)
 from polympc_torch.qp.box_admm import box_admm_solve
 from polympc_torch.qp.box_admm import first_epoch as _qp_first_epoch
 from polympc_torch.qp.types import QPData
@@ -103,12 +105,7 @@ def exact_hessian_fn(nlp: NLP, p):
 def _box_bounds(nlp: NLP, bounds: NLPBounds | None, B, n, dt, dev):
     """(lbx, ubx, cl, cu) per lane, infinite where ``bounds`` is None."""
     if bounds is None:
-        inf = float("inf")
-        bounds = NLPBounds(
-            lbx=torch.full((n,), -inf, dtype=dt, device=dev),
-            ubx=torch.full((n,), inf, dtype=dt, device=dev),
-            gl=torch.full((nlp.ni,), -inf, dtype=dt, device=dev),
-            gu=torch.full((nlp.ni,), inf, dtype=dt, device=dev))
+        bounds = unbounded(nlp, dt, dev)
     return (bounds.lbx.to(dt).expand(B, n), bounds.ubx.to(dt).expand(B, n),
             *_row_bounds(nlp, bounds, B, dt))
 

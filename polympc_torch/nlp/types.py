@@ -22,7 +22,7 @@ import torch
 
 from polympc_torch.qp.types import ADMMSettings
 
-__all__ = ["NLP", "NLPBounds", "SQPSettings", "SQPSolution"]
+__all__ = ["NLP", "NLPBounds", "SQPSettings", "SQPSolution", "unbounded"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +58,15 @@ class NLPBounds(NamedTuple):
     ubx: torch.Tensor
     gl: torch.Tensor
     gu: torch.Tensor
+
+
+def unbounded(nlp: NLP, dtype=torch.float64, device="cuda") -> NLPBounds:
+    """Infinite bounds on every variable and inequality row, shared by all
+    lanes: lbx, ubx (n,), gl, gu (ni,)."""
+    inf = float("inf")
+    full = lambda size, v: torch.full((size,), v, dtype=dtype, device=device)
+    return NLPBounds(lbx=full(nlp.n, -inf), ubx=full(nlp.n, inf),
+                     gl=full(nlp.ni, -inf), gu=full(nlp.ni, inf))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,10 @@ certify.
 Each function has a plain PyTorch version (``*_plain``) and a wrapper that
 dispatches on the device: a CUDA float32 tensor launches the hand-written
 kernel in ``csrc/ldlt.cu``, a CPU tensor takes the plain version, and any
-other CUDA input raises.  Inputs are batch-major (B, K, K) / (B, K).
+other CUDA input raises.  Inputs are batch-major (B, K, K) / (B, K); the
+``*_lanes`` entry points take the JAX package's lane-major layout
+(K, K, B) / (K, B) and run the same kernels (or plain versions) through a
+``movedim``.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ import torch
 from polympc_torch.ops import _build
 
 __all__ = ["ldlt_factor", "ldlt_factor_solve", "ldlt_solve", "ldlt_inverse",
+           "ldlt_factor_lanes", "ldlt_solve_lanes", "ldlt_factor_solve_lanes",
+           "ldlt_inverse_lanes",
            "ldlt_factor_plain", "ldlt_factor_solve_plain", "ldlt_solve_plain",
            "ldlt_inverse_plain", "sweep_inverse_mirror", "inverse_smem_bytes",
            "panel_solve_mirror", "packed_offset", "ldlt_smem_bytes",
@@ -340,3 +345,40 @@ def ldlt_inverse(M):
     _build.check(rc, "ldlt_inverse")
     _build.LAUNCHES["ldlt_inverse"] += 1
     return out
+
+
+# the JAX package's lane-major entry points: the batch on the last axis
+
+def _batch_first(t):
+    return t.movedim(-1, 0)
+
+
+def _lanes_last(t):
+    return t.movedim(0, -1)
+
+
+def ldlt_factor_lanes(M):
+    """(K, K, B) -> packed factor F (K, K, B), diagonal d (K, B):
+    :func:`ldlt_factor` on the lanes moved to the front."""
+    F, d = ldlt_factor(_batch_first(M))
+    return _lanes_last(F), _lanes_last(d)
+
+
+def ldlt_solve_lanes(F, d, b):
+    """Packed factor (K, K, B), (K, B) + right-hand side (K, B) -> solution
+    (K, B): :func:`ldlt_solve` on the lanes moved to the front."""
+    return _lanes_last(ldlt_solve(_batch_first(F), _batch_first(d),
+                                  _batch_first(b)))
+
+
+def ldlt_factor_solve_lanes(M, b):
+    """(K, K, B), (K, B) -> (x (K, B), F (K, K, B), d (K, B)):
+    :func:`ldlt_factor_solve` on the lanes moved to the front."""
+    x, F, d = ldlt_factor_solve(_batch_first(M), _batch_first(b))
+    return _lanes_last(x), _lanes_last(F), _lanes_last(d)
+
+
+def ldlt_inverse_lanes(M):
+    """(K, K, B) -> explicit inverse (K, K, B): :func:`ldlt_inverse` on
+    the lanes moved to the front."""
+    return _lanes_last(ldlt_inverse(_batch_first(M)))

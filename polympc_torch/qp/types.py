@@ -16,7 +16,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["QPData", "QPSolution", "ADMMSettings"]
+__all__ = ["QPData", "QPSolution", "ADMMSettings", "infer_dims",
+           "default_x0", "default_y0"]
 
 
 class QPData(NamedTuple):
@@ -85,3 +86,18 @@ class ADMMSettings:
                 and self.eps_abs >= 0 and self.eps_rel >= 0
                 and self.max_epochs >= 1 and self.check_every >= 1
                 and self.kkt_solver in ("lu", "inverse", "kernel"))
+
+
+def infer_dims(qp: QPData):
+    """(n, m) of a QP."""
+    return qp.H.shape[-1], qp.A.shape[-2]
+
+
+def default_x0(qp: QPData):
+    """The zero primal start, like ``qp.h``."""
+    return torch.zeros_like(qp.h)
+
+
+def default_y0(qp: QPData):
+    """The zero dual start, like ``qp.al``."""
+    return torch.zeros_like(qp.al)

@@ -39,6 +39,10 @@ INPUTS_WAIT_S = 100.0
 COMPOSED_S, COMPOSED_B = 4, 4
 COMPOSED_SETTINGS = dict(max_iter=6, admm_iters=100)
 BATCH_B = 8
+# the long-horizon Newton step: the card path's pendulum
+# (long_horizon_point.long_horizon) on 8 segments (two a rank), t in [0, 4]
+LH_S = 8
+LH_X0 = (1.5, 0.0)
 
 
 def schur_lane(S, k, p, a, seed):
@@ -200,6 +204,30 @@ def _sharding(mesh2):
             "shard_batch_local_rows": np.int64(sb.to_local().shape[0])}
 
 
+def long_horizon_inputs():
+    """(Z (S, nz), LAM (S, ne), x0) of the step, numpy float64: the
+    constant guess of x0 perturbed by 0.1 N(0, 1), multipliers
+    0.1 N(0, 1)."""
+    from polympc_torch.long_horizon_point import long_horizon
+    lh = long_horizon(LH_S)
+    rng = np.random.default_rng(31)
+    x0 = np.asarray(LH_X0)
+    Z = lh.initial_guess(x0, device="cpu").numpy() + \
+        0.1 * rng.normal(size=(LH_S, lh.nz))
+    return Z, 0.1 * rng.normal(size=(LH_S, lh.ne)), x0
+
+
+def _long_horizon(mesh):
+    """One long_horizon_newton_step on ``mesh`` (or without one): each
+    rank builds its own segments' blocks."""
+    from polympc_torch.long_horizon_point import long_horizon
+    from polympc_torch.parallel.long_horizon import long_horizon_newton_step
+    Z, LAM, x0 = (torch.tensor(a) for a in long_horizon_inputs())
+    out = long_horizon_newton_step(long_horizon(LH_S), Z, LAM, x0,
+                                   mesh=mesh)
+    return {f"lh_{k}": v.numpy() for k, v in zip(("Z", "LAM", "cont"), out)}
+
+
 def _wait_for(path):
     """The test's inputs, once it has moved them into place."""
     deadline = time.monotonic() + INPUTS_WAIT_S
@@ -218,7 +246,7 @@ def main(rank, nprocs, in_path, out_dir):
     seg = horizon_mesh(nprocs)
     mesh2 = mesh_2d(2, nprocs // 2)
     out = {**_schur(seg), **_composed(mesh2), **_batch(batch_mesh()),
-           **_errors(seg), **_sharding(mesh2)}
+           **_errors(seg), **_sharding(mesh2), **_long_horizon(seg)}
     stages = multichip_point.stages(rank, nprocs, "cpu")
     for stage, rep in stages.items():
         out[f"stage_{stage}_diff"] = np.float64(
@@ -228,7 +256,8 @@ def main(rank, nprocs, in_path, out_dir):
     out.update(_dist(inp, seg))
     meshless = {0: lambda: {**_schur(None), **_dist(inp, None)},
                 1: lambda: _composed(None),
-                2: lambda: _batch(None)}.get(rank, dict)()
+                2: lambda: _batch(None),
+                3: lambda: _long_horizon(None)}.get(rank, dict)()
     out.update({f"meshless_{k}": v for k, v in meshless.items()})
     path = os.path.join(out_dir, f"rank{rank}.npz")
     np.savez(path, **out)

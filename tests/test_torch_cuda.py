@@ -690,3 +690,54 @@ def test_schur_solve_on_a_one_rank_nccl_group(dev):
             assert torch.equal(got, want)
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_ldlt_lanes_entry_points_on_the_card(dev):
+    """The lane-major LDL^T entry points ((K, K, B), the batch last) launch
+    the kernels of their batch-first twins and equal them bit for bit."""
+    rng = np.random.default_rng(41)
+    B, K = 256, 40
+    A = rng.normal(size=(B, K, K))
+    M = A + A.transpose(0, 2, 1)
+    M += np.eye(K) * (np.abs(M).sum(2, keepdims=True) + 1.0) \
+        * np.where(np.arange(K) < K // 2, 1.0, -1.0)
+    M = torch.as_tensor(M, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(rng.normal(size=(B, K)), dtype=torch.float32,
+                        device=dev)
+    Ml, bl = M.movedim(0, -1), b.movedim(0, -1)
+    _build.reset_launches()
+    F, d = ldlt.ldlt_factor_lanes(Ml)
+    x, F2, d2 = ldlt.ldlt_factor_solve_lanes(Ml, bl)
+    xs = ldlt.ldlt_solve_lanes(F, d, bl)
+    inv = ldlt.ldlt_inverse_lanes(Ml)
+    for name in ("ldlt_factor", "ldlt_factor_solve", "ldlt_solve",
+                 "ldlt_inverse"):
+        assert _build.LAUNCHES[name] == 1, name
+    Fb, db = ldlt.ldlt_factor(M)
+    assert torch.equal(F, Fb.movedim(0, -1)) and torch.equal(
+        d, db.movedim(0, -1))
+    for got, want in zip((x, F2, d2), ldlt.ldlt_factor_solve(M, b)):
+        assert torch.equal(got, want.movedim(0, -1))
+    assert torch.equal(xs, ldlt.ldlt_solve(Fb, db, b).movedim(0, -1))
+    assert torch.equal(inv, ldlt.ldlt_inverse(M).movedim(0, -1))
+
+
+@pytest.mark.cuda
+def test_long_horizon_on_the_card(dev):
+    """The long-horizon Newton engine in float64 on the card (S=16, B=2
+    from the card path's draw) against the same solve on the CPU: hist
+    within 1e-9, Z within 1e-8 (another LU, other summation orders)."""
+    from polympc_torch import long_horizon_point as lp
+    from polympc_torch.parallel.long_horizon import solve_long_horizon
+    lh = lp.long_horizon(16)
+    x0 = lp.lane_x0s(2)
+    Zc, _, hc = solve_long_horizon(lh, x0, iters=lp.ITERS, device=dev)
+    Zh, _, hh = solve_long_horizon(lh, x0, iters=lp.ITERS, device="cpu")
+    assert Zc.device.type == "cuda"
+    for a, b in zip(hc, hh):
+        for k in ("defect", "continuity"):
+            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=1e-9)
+    np.testing.assert_allclose(Zc.cpu().numpy(), Zh.numpy(), rtol=0,
+                               atol=1e-8)
+    assert hc[-1]["defect"].max() <= 1e-7

@@ -13,6 +13,10 @@ devices, and hands the ranks the dist inputs as soon as it has them:
     ``schur_horizon_apply``, without and with a parameter border, lane by
     lane on ``horizon_mesh(4)`` (the port: S=4 over 4 ranks, both KKT
     routes), atol 1e-9;
+  * ``long_horizon_newton_step`` (the pendulum, S=8: two segments a
+    rank, each rank building only its own blocks) against the JAX
+    package's step sharded over ``horizon_mesh(8)``, atol 1e-7, and bit
+    for bit against the port's mesh-less step;
   * ``dist_sqp_solve`` on ``horizon_mesh(8)`` (the kite, Chebyshev(5) x 8,
     as tests/test_dist_sqp.py's mesh test, at fewer iterations; the port:
     2 segments a rank),
@@ -47,11 +51,13 @@ from polympc_tpu.models import kite_output as j_kite_output  # noqa: E402
 from polympc_tpu.models import kite_path as j_kite_path  # noqa: E402
 from polympc_tpu.parallel import dist_sqp as jd  # noqa: E402
 from polympc_tpu.parallel import horizon as jh  # noqa: E402
+from polympc_tpu.parallel import long_horizon as jl  # noqa: E402
 from polympc_torch.multichip_point import launch  # noqa: E402
 from polympc_torch.parallel import initialize_multihost  # noqa: E402
 
 SCHUR_TOL = 1e-9
 DIST_TOL = 1e-7
+LONG_HORIZON_TOL = 1e-7
 REFINE_TOL = 1e-9
 JOIN_TIMEOUT = 120.0
 # the dry run's stages run in float32 for two SQP iterations: the sharded
@@ -88,6 +94,26 @@ def _jax_schur(case):
     return {r: [o[r] for o in out] for r in ("solve", "lu")}
 
 
+def _jax_long_horizon():
+    """The JAX package's Newton step on the worker's inputs, sharded over
+    horizon_mesh(8) (one segment a device)."""
+    from polympc_tpu.basis import Chebyshev as JChebyshev
+    from polympc_tpu.ocp.ocp import OCP
+
+    def dyn(x, u, p, d, t):
+        return jnp.array([x[1], -jnp.sin(x[0]) - 0.2 * x[1] + u[0]])
+
+    def lag(x, u, p, d, t):
+        return x @ x + 0.1 * (u @ u)
+
+    lh = jl.LongHorizon(OCP(nx=2, nu=1, dynamics=dyn, lagrange=lag),
+                        JChebyshev(4), S=wk.LH_S, t0=0.0, tf=4.0)
+    Z, LAM, x0 = (jnp.asarray(a) for a in wk.long_horizon_inputs())
+    mesh = jh.horizon_mesh(wk.LH_S)
+    return jax.jit(lambda Z, LAM: jl.long_horizon_newton_step(
+        lh, Z, LAM, x0, mesh=mesh))(Z, LAM)
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("multihost")
@@ -115,10 +141,12 @@ def run(tmp_path_factory):
                 dtr, bounds, *a, d=wk.D, iters=2, mesh=mesh8))(
                 *(jout[k] for k in wk.SOL_KEYS))
             jschur = {case: _jax_schur(case) for case in wk.SCHUR}
+            jlh = _jax_long_horizon()
         finally:
             paths = ranks.result(timeout=JOIN_TIMEOUT + 30)
     got = [dict(np.load(p)) for p in paths]
-    return {"jout": jout, "jref": jref, "jschur": jschur, "ranks": got,
+    return {"jout": jout, "jref": jref, "jschur": jschur, "jlh": jlh,
+            "ranks": got,
             "port": got[0], "meshless": {
                 k[len("meshless_"):]: v for g in got for k, v in g.items()
                 if k.startswith("meshless_")}}
@@ -129,7 +157,7 @@ def test_every_rank_holds_the_whole_result(run):
     and counts equal rank 0's bit for bit."""
     for other in run["ranks"][1:]:
         for k in ("dist_W", "dist_lam_if", "dist_iters", "refine_W",
-                  "schur_border_solve_w", "composed_W", "batch_x"):
+                  "schur_border_solve_w", "composed_W", "batch_x", "lh_Z"):
             np.testing.assert_array_equal(other[k], run["port"][k], k)
 
 
@@ -147,6 +175,16 @@ def test_schur_sharded_matches_jax_and_meshless(run, case, route):
                                        rtol=0, atol=SCHUR_TOL, err_msg=key)
         np.testing.assert_allclose(port[key], own[key], rtol=0,
                                    atol=SCHUR_TOL, err_msg=key)
+
+
+def test_long_horizon_step_sharded_matches_jax_and_meshless(run):
+    port, own = run["port"], run["meshless"]
+    for name, want in zip(("Z", "LAM", "cont"), run["jlh"]):
+        np.testing.assert_array_equal(port[f"lh_{name}"], own[f"lh_{name}"],
+                                      name)
+        np.testing.assert_allclose(port[f"lh_{name}"], np.asarray(want),
+                                   rtol=0, atol=LONG_HORIZON_TOL,
+                                   err_msg=name)
 
 
 def test_dist_sqp_sharded_matches_jax_and_meshless(run):

@@ -328,7 +328,13 @@ def test_public_builders_default_to_the_card():
                  "polympc_torch.scaling_point.run_point",
                  "polympc_torch.scaling_point.sweep",
                  "polympc_torch.scaling_point.first_epoch",
-                 "polympc_torch.scaling_point.run_kernel_micro"):
+                 "polympc_torch.scaling_point.run_kernel_micro",
+                 "polympc_torch.nlp.types.unbounded",
+                 "polympc_torch.parallel.long_horizon.LongHorizon."
+                 "initial_guess",
+                 "polympc_torch.parallel.long_horizon.solve_long_horizon",
+                 "polympc_torch.long_horizon_point.split_timer",
+                 "polympc_torch.long_horizon_point.run"):
         assert qual in seen, qual
 
 
@@ -356,10 +362,159 @@ def test_top_level_exports_resolve_lazily():
         polympc_torch.no_such_name
 
 
+# The JAX package's public top-level names that the port carries under
+# another name, each with its counterpart there and the reason; the map
+# lists names, never a module.
+RENAMED = {
+    "ops.ldlt.pallas_fits": (
+        ("nlp.refine.REFINE_LDLT_MAX_K", "ops.ldlt.LDLT_MAX_K"),
+        "the TPU's VMEM rule for a (K, K, 128) lane tile; the port's LDL^T "
+        "route is re-derived for Hopper: the kernels' shared-memory bound "
+        "LDLT_MAX_K and the certify's K <= 206 rule"),
+    "ops.structure.bbt_solve_jnp": (
+        ("ops.structure.bbt_solve_dense",),
+        "the same oracle, batch-first with a packed right-hand side "
+        "(tests/test_torch_api_parity.py holds it to bbt_solve_jnp's "
+        "(xb, xp))"),
+}
+
+
+def _public_api(path):
+    """(names, classes) of a module, read by AST: its public top-level
+    functions and classes and its ``__all__`` (the literal parts), and per
+    public class its public methods and annotated (dataclass) fields."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names, classes = set(), {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)) and not node.name.startswith("_"):
+            names.add(node.name)
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            classes[node.name] = {
+                b.name if not isinstance(b, ast.AnnAssign) else b.target.id
+                for b in node.body
+                if (isinstance(b, (ast.FunctionDef, ast.AsyncFunctionDef))
+                    and not b.name.startswith("_"))
+                or (isinstance(b, ast.AnnAssign)
+                    and isinstance(b.target, ast.Name)
+                    and not b.target.id.startswith("_"))}
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            names |= {e.value for lst in ast.walk(node.value)
+                      if isinstance(lst, ast.List) for e in lst.elts
+                      if isinstance(e, ast.Constant)}
+    return names, classes
+
+
+def _module_names(path):
+    """Every name a module binds at its top level: definitions,
+    assignments and imports."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                            ast.Name):
+            out.add(node.target.id)
+    return out
+
+
+def _import_source(path, node):
+    """The port's file that ``from ... import`` at ``path`` reads, or None
+    (a module outside the port)."""
+    if node.level:
+        base = path.parents[node.level - 1]
+        parts = node.module.split(".") if node.module else []
+    else:
+        parts = (node.module or "").split(".")
+        if parts[0] != PORT.name:
+            return None
+        base, parts = PORT, parts[1:]
+    mod = base.joinpath(*parts)
+    for cand in (mod.with_suffix(".py"), mod / "__init__.py"):
+        if cand.is_file():
+            return cand
+    return None
+
+
+def _class_members(path, cls, hops=4):
+    """The public methods and fields of the class a module binds as
+    ``cls``: defined there, or imported there from another module of the
+    port (followed through re-exports); None if it does not resolve to a
+    class definition."""
+    _, classes = _public_api(path)
+    if cls in classes:
+        return classes[cls]
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        for a in node.names:
+            if (a.asname or a.name) == cls:
+                src = _import_source(path, node)
+                if src is None or hops == 0:
+                    return None
+                return _class_members(src, a.name, hops - 1)
+    return None
+
+
+def _resolves(dotted):
+    """Whether "sub.module.name" names a top-level binding of the port."""
+    mod, name = dotted.rsplit(".", 1)
+    path = PORT.joinpath(*mod.split(".")).with_suffix(".py")
+    return path.exists() and name in _module_names(path)
+
+
 def test_subpackage_exports_match_jax():
-    """polympc_torch.ocp and polympc_torch.utils export what the JAX
+    """Every module of the JAX package has its counterpart in the port,
+    read by AST (no JAX import): the module exists; it defines or exports
+    every public top-level function and class and every ``__all__`` name
+    of its twin (apart from RENAMED, whose counterparts resolve); each
+    public class has every public method and dataclass field of its twin,
+    whether the counterpart module defines the class or imports it.
+    And polympc_torch.ocp and polympc_torch.utils export what the JAX
     package's ocp and utils export (utils adds full_precision and
     block_diag_scatter, which the port's solvers share)."""
+    jax_root = ROOT / "polympc_tpu"
+    missing, seen = [], set()
+    for jpath in sorted(jax_root.rglob("*.py")):
+        rel = jpath.relative_to(jax_root)
+        mod = ".".join(rel.with_suffix("").parts)
+        tpath = PORT / rel
+        if not tpath.exists():
+            missing.append(f"module {mod}")
+            continue
+        names, classes = _public_api(jpath)
+        have = _module_names(tpath) | _public_api(tpath)[0]
+        for name in sorted(names):
+            key = f"{mod}.{name}" if mod != "__init__" else name
+            if key in RENAMED:
+                seen.add(key)
+                continue
+            if name not in have:
+                missing.append(key)
+        for cls, members in classes.items():
+            if cls not in have:
+                continue
+            tmembers = _class_members(tpath, cls)
+            if tmembers is None:
+                missing.append(f"{mod}.{cls}: not a class of the port")
+            elif members - tmembers:
+                missing.append(f"{mod}.{cls}: {sorted(members - tmembers)}")
+    assert not missing, missing
+    assert seen == set(RENAMED), set(RENAMED) - seen
+    for key, (counterparts, reason) in RENAMED.items():
+        assert key.count(".") >= 2 and reason, key
+        for c in counterparts:
+            assert _resolves(c), (key, c)
+
     import polympc_tpu.ocp as jo
     import polympc_tpu.utils as ju
     import polympc_torch.ocp as to
@@ -370,3 +525,39 @@ def test_subpackage_exports_match_jax():
     for m in (to, tu):
         for name in m.__all__:
             assert getattr(m, name) is not None, name
+
+
+def test_parity_walk_catches_what_it_must(tmp_path):
+    """The AST reading behind test_subpackage_exports_match_jax: top-level
+    definitions, literal __all__ parts, class methods and dataclass
+    fields; private names and nested definitions do not count."""
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import numpy as np\n"
+        "from a.b import c as d\n"
+        "__all__ = ['x'] + sorted(Y)\n"
+        "K = 3\n"
+        "def f():\n    def inner(): pass\n"
+        "def _g(): pass\n"
+        "class C:\n    u: int = 0\n    _v: int = 1\n"
+        "    def m(self): pass\n    def _p(self): pass\n")
+    names, classes = _public_api(src)
+    assert names == {"x", "f", "C"}
+    assert classes == {"C": {"u", "m"}}
+    assert _module_names(src) == {"np", "d", "__all__", "K", "f", "_g",
+                                  "C"}
+    pkg = tmp_path / "pkg"
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text("from .a import C\n")
+    (pkg / "a.py").write_text("class C:\n    u: int = 0\n"
+                              "    def m(self): pass\n")
+    (pkg / "b.py").write_text("from . import C as D\nE = D\n"
+                              "from numpy import ndarray\n")
+    assert _class_members(pkg / "b.py", "D") == {"u", "m"}
+    assert _class_members(pkg / "b.py", "E") is None
+    assert _class_members(pkg / "b.py", "ndarray") is None
+    assert _class_members(PORT / "nlp" / "__init__.py", "SQPSettings") \
+        == _public_api(PORT / "nlp" / "types.py")[1]["SQPSettings"]
+    assert _resolves("parallel.long_horizon.solve_long_horizon")
+    assert not _resolves("parallel.long_horizon.no_such_name")
+    assert not _resolves("no_such_module.f")

@@ -3,9 +3,9 @@
 
     python3 trace_port.py [kite] [spline] [frame] [race_car] [dist_kite_s8]
                           [dist_sharded] [cstr] [kite_ip] [kite_ms]
-                          [sweep_s8]
+                          [sweep_s8] [long_horizon]
 
-Each named path (all ten by default) is built at the widths that
+Each named path (all eleven by default) is built at the widths that
 chip_smoke.py drives: bench's certified kite batch (B=512), the spline QP
 batch (B=4096), the frame-transform batch (B=4096), the certified
 race-car batch (B=512), the certified horizon-partitioned kite batch
@@ -27,7 +27,10 @@ ocp_extras_point.py: whole-vector torch.func derivatives, the dense epoch
 kernel at K=125, the float64 certify), whole; and the horizon sweep's S=8
 point (polympc_torch/scaling_point.py: the kite on Chebyshev(5) x 8,
 B=128, the BBT epoch at 8 blocks of k=72, the float64 certify by LU at
-K=492), whole.
+K=492), whole; and the long-horizon batch (polympc_torch/
+long_horizon_point.py: the pendulum on S=512 Chebyshev(4) segments, B=32
+lanes, 12 float64 Newton steps of parallel/long_horizon.py: the segment
+blocks by torch.func, the interface by torch.linalg.solve), one solve.
 Its timed unit runs once to warm up, once timed on the host
 clock (ending in torch.cuda.synchronize()), then once under torch.profiler
 with CPU and CUDA activities.  Per path one JSON line:
@@ -100,6 +103,10 @@ def units(dev):
         return dist_point.batch_fn(128, dev, max_iter=DIST_TRACE_ITERS,
                                    mesh=mesh_2d(1, 1))
 
+    def long_horizon():
+        from polympc_torch import long_horizon_point as lp
+        return lp.batch_fn(lp.LANES, dev)[1]
+
     return {"kite": lambda: headline.batch_fn(512, dev), "spline": spline,
             "frame": frame, "race_car": race_car,
             "dist_kite_s8": lambda: dist_point.batch_fn(
@@ -109,7 +116,8 @@ def units(dev):
                 256, dev, max_iter=CSTR_TRACE_ITERS),
             "kite_ip": kite_ip,
             "kite_ms": lambda: ocp_extras_point.batch_fn(512, dev),
-            "sweep_s8": lambda: scaling_point.batch_fn(8, "bbt", 128, dev)}
+            "sweep_s8": lambda: scaling_point.batch_fn(8, "bbt", 128, dev),
+            "long_horizon": long_horizon}
 
 
 def busy_ms(intervals):
