@@ -21,6 +21,7 @@ from polympc_torch.nlp.sqp import (_constraints, derivative_fns,
 from polympc_torch.nlp.types import NLP, NLPBounds
 from polympc_torch.ops.ldlt import ldlt_factor_solve, ldlt_solve
 from polympc_torch.utils.precision import full_precision
+from polympc_torch.utils.timing import span
 
 __all__ = ["kkt_residual", "refine_solution", "newton_system",
            "KKTResidual"]
@@ -240,6 +241,15 @@ def refine_solution(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p=None,
     if kkt_solver not in ("ldlt", "lu"):
         raise ValueError("kkt_solver must be 'ldlt' or 'lu'")
     del solve_ir
+    with span("refine.solve", B=z.shape[0], iters=iters):
+        return _refine(nlp, z, lam, lam_box, bounds, p, iters, act_tol,
+                       solve_dtype, matrix_dtype, return_residual,
+                       kkt_solver, return_last)
+
+
+def _refine(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p, iters,
+            act_tol, solve_dtype, matrix_dtype, return_residual, kkt_solver,
+            return_last):
     sd = f64 if solve_dtype is None else solve_dtype
     md = f64 if matrix_dtype is None else matrix_dtype
     z, lam, lam_box = z.to(f64), lam.to(f64), lam_box.to(f64)
@@ -256,32 +266,41 @@ def refine_solution(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p=None,
         return _kkt_from_parts(g, c, J, z, lam, lam_box, cl, cu, lbx,
                                ubx).max
 
-    cur = (z, lam, lam_box, grad_fn(z), _constraints(nlp, z, p64), jac_fn(z))
+    def derivatives(z):
+        with span("refine.derivatives"):
+            return grad_fn(z), _constraints(nlp, z, p64), jac_fn(z)
+
+    cur = (z, lam, lam_box, *derivatives(z))
     best = (z, lam, lam_box)
     best_r = residual_of(*cur)
     for _ in range(iters):
-        z, lam, lam_box, g, c, J = cur
-        act = _active_set(z, c, cl, cu, lbx, ubx, act_tol)
-        ac, ax = act[0], act[2]
-        Ms, rs, dscale = _newton_system(hess(z, lam), g, c, J, z, lam, act)
-        if kkt_solver == "ldlt":
-            sol = _newton_kkt_solve(Ms.to(sd), rs.to(sd))
-        else:
-            sol = torch.linalg.solve(Ms.to(sd), rs.to(sd))
-        sol = dscale * sol.to(f64)
-        ok = torch.isfinite(sol).all(1)[:, None]
-        dz = torch.where(ok, sol[:, :n], torch.zeros_like(z))
-        z2 = torch.clamp(z + dz, min=lbx, max=ubx)
-        lam2 = torch.where(ok, ac * (lam + sol[:, n:]), lam) if m else lam
-        g2, c2, J2 = grad_fn(z2), _constraints(nlp, z2, p64), jac_fn(z2)
-        lam_box2 = torch.where(
-            ok, -ax * (g2 + _mv(J2.transpose(1, 2), lam2)), lam_box)
-        cur = (z2, lam2, lam_box2, g2, c2, J2)
-        r_new = residual_of(*cur)
-        improved = (r_new <= best_r)[:, None]
-        best = tuple(torch.where(improved, a, b)
-                     for a, b in zip((z2, lam2, lam_box2), best))
-        best_r = torch.minimum(r_new, best_r)
+        with span("refine.step"):
+            z, lam, lam_box, g, c, J = cur
+            act = _active_set(z, c, cl, cu, lbx, ubx, act_tol)
+            ac, ax = act[0], act[2]
+            with span("refine.derivatives"):
+                W = hess(z, lam)
+            Ms, rs, dscale = _newton_system(W, g, c, J, z, lam, act)
+            with span("refine.kkt_solve"):
+                if kkt_solver == "ldlt":
+                    sol = _newton_kkt_solve(Ms.to(sd), rs.to(sd))
+                else:
+                    sol = torch.linalg.solve(Ms.to(sd), rs.to(sd))
+            sol = dscale * sol.to(f64)
+            ok = torch.isfinite(sol).all(1)[:, None]
+            dz = torch.where(ok, sol[:, :n], torch.zeros_like(z))
+            z2 = torch.clamp(z + dz, min=lbx, max=ubx)
+            lam2 = torch.where(ok, ac * (lam + sol[:, n:]), lam) if m \
+                else lam
+            g2, c2, J2 = derivatives(z2)
+            lam_box2 = torch.where(
+                ok, -ax * (g2 + _mv(J2.transpose(1, 2), lam2)), lam_box)
+            cur = (z2, lam2, lam_box2, g2, c2, J2)
+            r_new = residual_of(*cur)
+            improved = (r_new <= best_r)[:, None]
+            best = tuple(torch.where(improved, a, b)
+                         for a, b in zip((z2, lam2, lam_box2), best))
+            best_r = torch.minimum(r_new, best_r)
     out = best
     if return_residual:
         out = out + (best_r,)

@@ -32,11 +32,12 @@ from polympc_torch.nlp.hessian import (
 from polympc_torch.nlp.types import (
     NLP, NLPBounds, SQPSettings, SQPSolution, unbounded,
 )
-from polympc_torch.qp.box_admm import box_admm_solve
+from polympc_torch.qp.box_admm import _nonzero, box_admm_solve
 from polympc_torch.qp.box_admm import first_epoch as _qp_first_epoch
 from polympc_torch.qp.types import QPData
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
+from polympc_torch.utils.timing import span
 
 __all__ = ["sqp_solve", "first_epoch"]
 
@@ -112,8 +113,10 @@ def _box_bounds(nlp: NLP, bounds: NLPBounds | None, B, n, dt, dev):
 
 def _subproblem(H, g, A, c, cl, cu, lbx, ubx, x, settings: SQPSettings):
     """The QP in the step: regularised Hessian, bounds shifted by x."""
-    return QPData(H=regularize(H, settings.reg, settings.reg_eps), h=g, A=A,
-                  al=cl - c, au=cu - c, xl=lbx - x, xu=ubx - x)
+    with span("sqp.regularize"):
+        H = regularize(H, settings.reg, settings.reg_eps)
+    return QPData(H=H, h=g, A=A, al=cl - c, au=cu - c, xl=lbx - x,
+                  xu=ubx - x)
 
 
 @full_precision()
@@ -181,6 +184,12 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
     lanes).  bounds: each tensor (n,)/(ni,) shared, or (B, n)/(B, ni) per
     lane.  lam0 (B, m), lam_box0 (B, n): optional dual warm starts.
     """
+    with span("sqp.solve", B=x0.shape[0], n=x0.shape[1], m=nlp.m):
+        return _sqp_solve(nlp, x0, p, bounds, lam0, lam_box0, settings)
+
+
+def _sqp_solve(nlp: NLP, x0, p, bounds, lam0, lam_box0,
+               settings: SQPSettings) -> SQPSolution:
     if not settings.validate():
         raise ValueError("invalid SQP settings")
     B, n = x0.shape
@@ -224,8 +233,9 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         x, lam, lam_box, g, c, A, f0 = (s[k] for k in (
             "x", "lam", "lam_box", "g", "c", "A", "f"))
         b = x.shape[0]
-        qp = _subproblem(hessian(s, x, lam), g, A, c, cl, cu, lbx, ubx, x,
-                         settings)
+        with span("sqp.hessian"):
+            H = hessian(s, x, lam)
+        qp = _subproblem(H, g, A, c, cl, cu, lbx, ubx, x, settings)
         qs = box_admm_solve(qp, y0=lam, y_box0=lam_box, settings=settings.qp)
         p_ok = (torch.isfinite(qs.x).all(1) & torch.isfinite(qs.y).all(1)
                 & torch.isfinite(qs.y_box).all(1))[:, None]
@@ -234,56 +244,57 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         lam_box_qp = torch.where(p_ok, qs.y_box, lam_box)
         pstep = torch.clamp(pstep, min=lbx - x, max=ubx - x)
 
-        # line search over the fixed trial ladder, every lane at once
-        v0 = _violation_l1(c, cl, cu, x, lbx, ubx)
-        dphi_f = torch.sum(g * pstep, dim=1)
-        xt = (x[:, None, :] + alphas[None, :, None] * pstep[:, None, :]
-              ).reshape(b * L, n)
-        trial_f = cost_fn(xt).reshape(b, L)
-        trial_v = _violation_l1(con_fn(xt).reshape(b, L, m), cl[:, None],
-                                cu[:, None], xt.reshape(b, L, n),
-                                lbx[:, None], ubx[:, None])
-        bad = torch.isnan(trial_f) | torch.isnan(trial_v)
-        inf = torch.full_like(trial_f, float("inf"))
-        trial_f = torch.where(bad, inf, trial_f)
-        trial_v = torch.where(bad, inf, trial_v)
+        with span("sqp.line_search"):
+            # line search over the fixed trial ladder, every lane at once
+            v0 = _violation_l1(c, cl, cu, x, lbx, ubx)
+            dphi_f = torch.sum(g * pstep, dim=1)
+            xt = (x[:, None, :] + alphas[None, :, None] * pstep[:, None, :]
+                  ).reshape(b * L, n)
+            trial_f = cost_fn(xt).reshape(b, L)
+            trial_v = _violation_l1(con_fn(xt).reshape(b, L, m), cl[:, None],
+                                    cu[:, None], xt.reshape(b, L, n),
+                                    lbx[:, None], ubx[:, None])
+            bad = torch.isnan(trial_f) | torch.isnan(trial_v)
+            inf = torch.full_like(trial_f, float("inf"))
+            trial_f = torch.where(bad, inf, trial_f)
+            trial_v = torch.where(bad, inf, trial_v)
 
-        if filt:
-            # Fletcher-Leyffer filter acceptance (line_search.hpp:16-98): a
-            # trial must improve cost or violation by the margins against
-            # every filter entry and the current point
-            gma, beta = settings.filter_gamma, settings.filter_beta
-            ff, fv = s["filt_f"][:, None, :], s["filt_v"][:, None, :]
-            ok_entries = ((trial_f[:, :, None] <= ff - gma * fv)
-                          | (trial_v[:, :, None] <= beta * fv)).all(2)
-            ok_current = ((trial_f <= (f0 - gma * v0)[:, None])
-                          | (trial_v <= (beta * v0)[:, None]))
-            ok = ok_entries & ok_current
-            improve = (trial_f < f0[:, None]) | (trial_v < v0[:, None])
-            score = trial_f + trial_v
-        else:
-            mu = torch.clamp(settings.merit_mu_safety + torch.maximum(
-                _inf_norm(lam_qp), _inf_norm(lam_box_qp)),
-                max=settings.merit_mu_max)
-            phi0 = f0 + mu * v0
-            dphi = dphi_f - mu * v0
-            score = trial_f + mu[:, None] * trial_v
-            ok = score <= (phi0[:, None] + settings.eta * alphas[None]
-                           * dphi[:, None])
-            improve = score < phi0[:, None]
-        first = torch.argmax(ok.to(torch.int32), dim=1)
-        finite = torch.isfinite(trial_f) & torch.isfinite(trial_v)
-        improve = improve & finite
-        best = torch.argmin(torch.where(improve, score, inf), dim=1)
-        smallest = L - 1 - torch.argmax(
-            torch.flip(finite, [1]).to(torch.int32), dim=1)
-        any_fin = finite.any(1)
-        fallback = torch.where(improve.any(1), best,
-                               torch.where(any_fin, smallest,
-                                           torch.zeros_like(smallest)))
-        sel = torch.where(ok.any(1), first, fallback)
-        alpha = torch.where(any_fin, alphas[sel], torch.zeros_like(v0))
-        f_sel = trial_f.gather(1, sel[:, None])[:, 0]
+            if filt:
+                # Fletcher-Leyffer filter acceptance (line_search.hpp:16-98): a
+                # trial must improve cost or violation by the margins against
+                # every filter entry and the current point
+                gma, beta = settings.filter_gamma, settings.filter_beta
+                ff, fv = s["filt_f"][:, None, :], s["filt_v"][:, None, :]
+                ok_entries = ((trial_f[:, :, None] <= ff - gma * fv)
+                              | (trial_v[:, :, None] <= beta * fv)).all(2)
+                ok_current = ((trial_f <= (f0 - gma * v0)[:, None])
+                              | (trial_v <= (beta * v0)[:, None]))
+                ok = ok_entries & ok_current
+                improve = (trial_f < f0[:, None]) | (trial_v < v0[:, None])
+                score = trial_f + trial_v
+            else:
+                mu = torch.clamp(settings.merit_mu_safety + torch.maximum(
+                    _inf_norm(lam_qp), _inf_norm(lam_box_qp)),
+                    max=settings.merit_mu_max)
+                phi0 = f0 + mu * v0
+                dphi = dphi_f - mu * v0
+                score = trial_f + mu[:, None] * trial_v
+                ok = score <= (phi0[:, None] + settings.eta * alphas[None]
+                               * dphi[:, None])
+                improve = score < phi0[:, None]
+            first = torch.argmax(ok.to(torch.int32), dim=1)
+            finite = torch.isfinite(trial_f) & torch.isfinite(trial_v)
+            improve = improve & finite
+            best = torch.argmin(torch.where(improve, score, inf), dim=1)
+            smallest = L - 1 - torch.argmax(
+                torch.flip(finite, [1]).to(torch.int32), dim=1)
+            any_fin = finite.any(1)
+            fallback = torch.where(improve.any(1), best,
+                                   torch.where(any_fin, smallest,
+                                               torch.zeros_like(smallest)))
+            sel = torch.where(ok.any(1), first, fallback)
+            alpha = torch.where(any_fin, alphas[sel], torch.zeros_like(v0))
+            f_sel = trial_f.gather(1, sel[:, None])[:, 0]
 
         new = {}
         if filt:
@@ -301,9 +312,10 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         x2 = x + alpha[:, None] * pstep
         lam2 = lam + alpha[:, None] * (lam_qp - lam) if m else lam
         lam_box2 = lam_box + alpha[:, None] * (lam_box_qp - lam_box)
-        g2 = grad_fn(x2)
-        c2 = con_fn(x2)
-        A2 = jac_fn(x2)
+        with span("sqp.derivatives"):
+            g2 = grad_fn(x2)
+            c2 = con_fn(x2)
+            A2 = jac_fn(x2)
         f2 = torch.where(any_fin, f_sel, f0)
         At = A2.transpose(1, 2)
 
@@ -344,6 +356,9 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         return new
 
     x0 = torch.clamp(x0.to(dt), min=lbx, max=ubx)
+    with span("sqp.derivatives"):
+        derivs = {"g": grad_fn(x0), "c": con_fn(x0), "A": jac_fn(x0),
+                  "f": cost_fn(x0)}
     inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
     S = {"x": x0,
          "lam": torch.zeros((B, m), dtype=dt, device=dev) if lam0 is None
@@ -353,9 +368,7 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
          "it": torch.zeros(B, dtype=torch.int32, device=dev),
          "done": torch.zeros(B, dtype=torch.bool, device=dev),
          "qp_iters": torch.zeros(B, dtype=torch.int32, device=dev),
-         "ps": inf, "ds": inf.clone(), "vi": inf.clone(),
-         "g": grad_fn(x0), "c": con_fn(x0), "A": jac_fn(x0),
-         "f": cost_fn(x0)}
+         "ps": inf, "ds": inf.clone(), "vi": inf.clone(), **derivs}
     if mode == "block_bfgs":
         S.update(zip(_QN_KEYS, block_hessian_identity(
             bs_N, bs_nx, bs_nu, bs_np, B, dt, dev)))
@@ -371,15 +384,19 @@ def sqp_solve(nlp: NLP, x0, p=None, bounds: NLPBounds | None = None,
         S["trace"] = torch.full((B, T, 4), float("nan"), dtype=dt,
                                 device=dev)
     while True:
-        active = ~S["done"] & (S["it"] < settings.max_iter)
-        idx = torch.nonzero(active).flatten()
-        if idx.numel() == 0:
-            break
-        take = lambda t: t.index_select(0, idx)
-        new = body({k: take(v) for k, v in S.items()}, take(cl), take(cu),
-                   take(lbx), take(ubx))
-        for k, v in new.items():
-            S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
+        with span("sqp.iter") as it:
+            with span("sqp.gather"):
+                active = ~S["done"] & (S["it"] < settings.max_iter)
+                idx, lanes = _nonzero(active)
+                it.set(lanes=lanes)
+                if lanes == 0:
+                    break
+                take = lambda t: t.index_select(0, idx)
+                sub = ({k: take(v) for k, v in S.items()}, take(cl),
+                       take(cu), take(lbx), take(ubx))
+            new = body(*sub)
+            for k, v in new.items():
+                S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
 
     status = torch.where(S["done"], st.SOLVED, st.MAX_ITER_EXCEEDED).to(
         torch.int32)

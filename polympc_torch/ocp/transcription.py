@@ -31,9 +31,19 @@ from polympc_torch.basis.basis import SegmentedBasis
 from polympc_torch.nlp.types import NLP, NLPBounds
 from polympc_torch.ocp.ocp import OCP
 from polympc_torch.utils.solver_utils import block_diag_scatter
+from polympc_torch.utils.timing import count, span
 
 __all__ = ["Transcription", "transcribe", "ocp_bounds", "split_z", "pack_z",
            "SpectralOps"]
+
+
+def _host_constant(a, dtype, device):
+    """``torch.as_tensor(a)`` on ``device`` for a host array ``a``.  On a
+    card the copy from pageable memory waits for the work queued before
+    it: a blocking "sync", counted as one."""
+    with span("sync"):
+        count("sync")
+        return torch.as_tensor(a, dtype=dtype, device=device)
 
 
 class SpectralOps(NamedTuple):
@@ -121,12 +131,11 @@ class Transcription:
 
     def pack(self, X, U, P=None):
         """Physical (X (..., N, nx), U, P) -> scaled z (..., n)."""
-        X = X / torch.as_tensor(self.x_scale, dtype=X.dtype, device=X.device)
-        U = U.to(X.dtype) / torch.as_tensor(self.u_scale, dtype=X.dtype,
-                                            device=X.device)
+        X = X / _host_constant(self.x_scale, X.dtype, X.device)
+        U = U.to(X.dtype) / _host_constant(self.u_scale, X.dtype, X.device)
         if P is not None and self.ocp.np_:
-            P = P.to(X.dtype) / torch.as_tensor(self.p_scale, dtype=X.dtype,
-                                                device=X.device)
+            P = P.to(X.dtype) / _host_constant(self.p_scale, X.dtype,
+                                              X.device)
         else:
             P = None
         return pack_z(X, U, P)
@@ -147,7 +156,7 @@ class Transcription:
         ocp, N = self.ocp, self.N
         B = x0.shape[0]
         dtype, dev = x0.dtype, x0.device
-        tau = torch.as_tensor(self.tau, dtype=dtype, device=dev)
+        tau = _host_constant(self.tau, dtype, dev)
         tgrid = prm["t0"] + (prm["tf"] - prm["t0"]) * tau
         if U is None:
             U = torch.zeros((B, N, ocp.nu), dtype=dtype, device=dev)

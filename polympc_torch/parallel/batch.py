@@ -17,8 +17,9 @@ import torch.distributed as dist
 
 from polympc_torch.nlp.sqp import sqp_solve
 from polympc_torch.nlp.types import NLPBounds, SQPSettings
-from polympc_torch.ocp.transcription import Transcription
+from polympc_torch.ocp.transcription import Transcription, _host_constant
 from polympc_torch.parallel.mesh import mesh_device_type
+from polympc_torch.utils.timing import span
 
 __all__ = ["make_batch_solver", "pin_initial_state", "batch_mesh",
            "shard_batch"]
@@ -29,8 +30,7 @@ def pin_initial_state(tr: Transcription, bounds: NLPBounds, x0s):
     (physical (B, nx)); the other bounds are shared."""
     nx, n = tr.ocp.nx, tr.nlp.n
     B = x0s.shape[0]
-    x0sc = x0s / torch.as_tensor(tr.x_scale, dtype=x0s.dtype,
-                                 device=x0s.device)
+    x0sc = x0s / _host_constant(tr.x_scale, x0s.dtype, x0s.device)
     lbx = bounds.lbx.to(x0s.dtype).expand(B, n).clone()
     ubx = bounds.ubx.to(x0s.dtype).expand(B, n).clone()
     lbx[:, :nx] = x0sc
@@ -98,23 +98,26 @@ def make_batch_solver(tr: Transcription, base_bounds: NLPBounds, prm,
     def solve_rows(x0s, z0s, lam0s, lam_box0s):
         B = x0s.shape[0]
         dt, dev = x0s.dtype, x0s.device
-        bounds, x0sc = pin_initial_state(tr, base_bounds, x0s)
-        if rollout_guess:
-            z0 = tr.rollout_guess(x0s, prm)
-        elif z0s is None:
-            z0 = tr.initial_guess(dtype=dt, device=dev)[None].repeat(B, 1)
-        else:
-            z0 = z0s.to(dt).clone()
-        z0[:, :tr.ocp.nx] = x0sc
+        with span("batch.start"):
+            bounds, x0sc = pin_initial_state(tr, base_bounds, x0s)
+            if rollout_guess:
+                z0 = tr.rollout_guess(x0s, prm)
+            elif z0s is None:
+                z0 = tr.initial_guess(dtype=dt, device=dev)[None].repeat(
+                    B, 1)
+            else:
+                z0 = z0s.to(dt).clone()
+            z0[:, :tr.ocp.nx] = x0sc
         return sqp_solve(tr.nlp, z0, p=prm, bounds=bounds, lam0=lam0s,
                          lam_box0=lam_box0s, settings=settings)
 
     def solve(x0s, z0s=None, lam0s=None, lam_box0s=None):
-        if mesh is None:
-            return solve_rows(x0s, z0s, lam0s, lam_box0s)
-        sol = solve_rows(*(local_rows(t, mesh)
-                           for t in (x0s, z0s, lam0s, lam_box0s)))
-        return type(sol)(*(shard_rows(t, mesh) for t in sol))
+        with span("batch.solve", B=x0s.shape[0]):
+            if mesh is None:
+                return solve_rows(x0s, z0s, lam0s, lam_box0s)
+            sol = solve_rows(*(local_rows(t, mesh)
+                               for t in (x0s, z0s, lam0s, lam_box0s)))
+            return type(sol)(*(shard_rows(t, mesh) for t in sol))
 
     return solve
 

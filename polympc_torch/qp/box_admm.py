@@ -39,6 +39,7 @@ from polympc_torch.qp.ruiz import ruiz_equilibrate, unscale_solution
 from polympc_torch.qp.types import QPData, QPSolution, ADMMSettings
 from polympc_torch.utils import status as st
 from polympc_torch.utils.precision import full_precision
+from polympc_torch.utils.timing import count, span
 
 __all__ = ["box_admm_solve", "admm_solve", "classify_constraints",
            "rho_vector", "penalties", "epoch_route", "first_epoch"]
@@ -53,6 +54,16 @@ def _inf_norm(v):
 
 def _mv(A, v):
     return (A @ v[..., None])[..., 0]
+
+
+def _nonzero(mask):
+    """(indices of the true entries of a 1-D mask, their number).  The
+    host reads the number, so it waits here for the work queued before:
+    a blocking read, under the "sync" span and counter."""
+    with span("sync"):
+        count("sync")
+        idx = torch.nonzero(mask).flatten()
+        return idx, idx.numel()
 
 
 def classify_constraints(al, au, settings: ADMMSettings):
@@ -279,10 +290,11 @@ def box_admm_solve(qp: QPData, x0=None, y0=None, y_box0=None,
     """
     if not settings.validate():
         raise ValueError("invalid ADMM settings")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in qp):
-        out = _ImplicitQP.apply(settings, x0, y0, y_box0, *qp)
-        return QPSolution(*out)
-    return _box_admm_raw(qp, x0, y0, y_box0, settings)
+    with span("qp.solve"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in qp):
+            out = _ImplicitQP.apply(settings, x0, y0, y_box0, *qp)
+            return QPSolution(*out)
+        return _box_admm_raw(qp, x0, y0, y_box0, settings)
 
 
 def _start(qp: QPData, x0, y0, y_box0, settings: ADMMSettings):
@@ -326,6 +338,37 @@ def first_epoch(qp: QPData, x0=None, y0=None, y_box0=None,
             qp.xl, qp.xu, rho, rb, *state)
 
 
+def _check(qp: QPData, old, state, new, settings: ADMMSettings):
+    """One epoch's end for its lanes: the divergence guard (freeze at the
+    last finite state), residuals, infeasibility certificates, adaptive
+    rho and the stopping test; returns the lanes' new solve state."""
+    finite = (torch.isfinite(new[0]).all(1) & torch.isfinite(new[3]).all(1)
+              & torch.isfinite(new[4]).all(1))
+    x2, z2, q2, y2, yb2 = (torch.where(finite[:, None], a, b)
+                           for a, b in zip(new, state))
+    rp2, rd2, ps, ds = _residuals(qp, x2, z2, q2, y2, yb2)
+    eps_p = settings.eps_abs + settings.eps_rel * ps
+    eps_d = settings.eps_abs + settings.eps_rel * ds
+    conv = (rp2 <= eps_p) & (rd2 <= eps_d)
+    div2 = old["div"] | ~finite
+    pinf2, dinf2 = _infeasibility_certificates(
+        qp, x2 - state[0], y2 - state[3], yb2 - state[4], settings.eps_inf)
+    pinf2 = old["pinf"] | (pinf2 & finite & ~conv)
+    dinf2 = old["dinf"] | (dinf2 & finite & ~conv)
+    rho_base = old["rho"]
+    if settings.adaptive_rho:
+        num = rp2 / torch.clamp(ps, min=1e-12)
+        den = rd2 / torch.clamp(ds, min=1e-12)
+        scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
+                            1e-3, 1e3)
+        rho_base = torch.clamp(rho_base * scale, settings.rho_min,
+                               settings.rho_max)
+    return {"x": x2, "z": z2, "q": q2, "y": y2, "yb": yb2,
+            "rho": rho_base, "epoch": old["epoch"] + 1,
+            "done": conv | div2 | pinf2 | dinf2, "rp": rp2, "rd": rd2,
+            "div": div2, "pinf": pinf2, "dinf": dinf2}
+
+
 def _box_admm_raw(qp: QPData, x0, y0, y_box0,
                   settings: ADMMSettings) -> QPSolution:
     B, n = qp.h.shape
@@ -341,46 +384,24 @@ def _box_admm_raw(qp: QPData, x0, y0, y_box0,
          "pinf": false.clone(), "dinf": false.clone()}
 
     while True:
-        active = ~S["done"] & (S["epoch"] < settings.max_epochs)
-        idx = torch.nonzero(active).flatten()
-        if idx.numel() == 0:
-            break
-        sub = _take(qp, idx)
-        old = {k: v.index_select(0, idx) for k, v in S.items()}
-        state = (old["x"], old["z"], old["q"], old["y"], old["yb"])
-        rho, rb = penalties(old["rho"], sub, settings)
-        kkt = _build_kkt(sub, rho, rb, settings.sigma)
-        new = _epoch(kkt, sub, rho, rb, state, settings)
-
-        # divergence guard: freeze at the last finite state
-        finite = (torch.isfinite(new[0]).all(1) & torch.isfinite(new[3]).all(1)
-                  & torch.isfinite(new[4]).all(1))
-        x2, z2, q2, y2, yb2 = (torch.where(finite[:, None], a, b)
-                               for a, b in zip(new, state))
-        rp2, rd2, ps, ds = _residuals(sub, x2, z2, q2, y2, yb2)
-        eps_p = settings.eps_abs + settings.eps_rel * ps
-        eps_d = settings.eps_abs + settings.eps_rel * ds
-        conv = (rp2 <= eps_p) & (rd2 <= eps_d)
-        div2 = old["div"] | ~finite
-        pinf2, dinf2 = _infeasibility_certificates(
-            sub, x2 - state[0], y2 - state[3], yb2 - state[4],
-            settings.eps_inf)
-        pinf2 = old["pinf"] | (pinf2 & finite & ~conv)
-        dinf2 = old["dinf"] | (dinf2 & finite & ~conv)
-        rho_base = old["rho"]
-        if settings.adaptive_rho:
-            num = rp2 / torch.clamp(ps, min=1e-12)
-            den = rd2 / torch.clamp(ds, min=1e-12)
-            scale = torch.clamp(torch.sqrt(num / torch.clamp(den, min=1e-12)),
-                                1e-3, 1e3)
-            rho_base = torch.clamp(rho_base * scale, settings.rho_min,
-                                   settings.rho_max)
-        upd = {"x": x2, "z": z2, "q": q2, "y": y2, "yb": yb2,
-               "rho": rho_base, "epoch": old["epoch"] + 1,
-               "done": conv | div2 | pinf2 | dinf2, "rp": rp2, "rd": rd2,
-               "div": div2, "pinf": pinf2, "dinf": dinf2}
-        for k, v in upd.items():
-            S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
+        with span("qp.epoch"):
+            with span("qp.gather"):
+                active = ~S["done"] & (S["epoch"] < settings.max_epochs)
+                idx, lanes = _nonzero(active)
+                if lanes == 0:
+                    break
+                sub = _take(qp, idx)
+                old = {k: v.index_select(0, idx) for k, v in S.items()}
+            state = (old["x"], old["z"], old["q"], old["y"], old["yb"])
+            with span("qp.kkt"):
+                rho, rb = penalties(old["rho"], sub, settings)
+                kkt = _build_kkt(sub, rho, rb, settings.sigma)
+            with span("qp.kernel"):
+                new = _epoch(kkt, sub, rho, rb, state, settings)
+            with span("qp.check"):
+                upd = _check(sub, old, state, new, settings)
+            for k, v in upd.items():
+                S[k] = S[k].index_copy(0, idx, v.to(S[k].dtype))
 
     x, y, yb, done = S["x"], S["y"], S["yb"], S["done"]
     if settings.polish:

@@ -12,6 +12,12 @@ events where the results live on one card (the card's clock, in its
 stream) and with a synchronised host clock otherwise; ``trace`` wraps
 ``torch.profiler`` and writes a Chrome trace (view it in Perfetto or
 chrome://tracing).
+
+Those wrap a whole call from outside.  Inside the program, ``span`` and
+``count`` mark where the work happens (the SQP loop, the derivatives, the
+QP epochs, the certify's Newton steps, the host's blocking reads); they
+record only between ``start_recording()`` and ``stop_recording()``, and
+``recorded()`` hands back what they saw.
 """
 from __future__ import annotations
 
@@ -19,10 +25,15 @@ import contextlib
 import dataclasses
 import os
 import time
+from typing import NamedTuple
 
 import torch
+import torch.autograd.profiler as _profiler
+from torch._C._profiler import _RecordFunctionFast
 
-__all__ = ["get_time", "Timer", "time_fn", "SolveStats", "trace"]
+__all__ = ["get_time", "Timer", "time_fn", "SolveStats", "trace", "span",
+           "count", "start_recording", "stop_recording", "recorded",
+           "SpanRecord", "Recording"]
 
 
 def get_time() -> float:
@@ -141,3 +152,150 @@ def trace(log_dir: str):
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# In-program spans and counters
+
+class SpanRecord(NamedTuple):
+    """One closed span: ``root`` is the id of the outermost span open when
+    it began (its own id for a root), shared by every span of one call."""
+    id: int
+    parent: int | None
+    root: int
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+class Recording(NamedTuple):
+    """What the recorder saw: the closed spans in the order they closed,
+    each counter's total, and each counter per root span (key None for a
+    count made outside any span)."""
+    spans: list
+    counts: dict
+    root_counts: dict
+
+
+_recording = False
+_spans: list = []
+_root_counts: dict = {}
+_open: list = []
+_next_id = 0
+
+
+class _NoSpan:
+    """The span handed out while nothing records: one shared object."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs):
+        pass
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "root", "start", "label")
+
+    def __init__(self, name, attrs):
+        self.name, self.attrs = name, attrs
+
+    def set(self, **attrs):
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        global _next_id
+        self.id = _next_id
+        _next_id += 1
+        profiled = _profiler._is_profiler_enabled
+        if _open:
+            up = _open[-1]
+            self.parent, self.root = up.id, up.root
+        else:
+            self.parent, self.root = None, self.id
+            self.attrs["profiled"] = profiled
+        _open.append(self)
+        self.label = _RecordFunctionFast("polympc." + self.name) \
+            if profiled else None
+        self.start = time.time_ns()
+        if self.label is not None:
+            self.label.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.label is not None:
+            self.label.__exit__(*exc)
+        end = time.time_ns()
+        _open.pop()
+        _spans.append(SpanRecord(self.id, self.parent, self.root, self.name,
+                                 self.start, end, self.attrs))
+        return False
+
+
+def span(name: str, **attrs):
+    """Context manager marking one piece of the program's work.
+
+    While nothing records (the default) it returns one shared no-op object
+    after a single flag check.  While recording it notes (id, parent id,
+    root id, name, start, end, attrs) when it closes; a span opened with
+    no other open is a root, and its ``attrs["profiled"]`` says whether a
+    ``torch.profiler`` was recording when it began.  Times are
+    nanoseconds of ``time.time_ns()``, the Unix-epoch clock on which
+    ``torch.profiler`` stamps its host events (torch 2.11 with CUDA 12.8
+    on an H100 machine and torch 2.13 on the CPU); the start is read just
+    before, the end just after, the span's label "polympc." + name, which
+    it opens only while a profiler records.  So the span brackets its
+    label on the profiler's timeline, and an idle gap of the device is
+    named by the innermost span open there.  The label is a host operator
+    event (``_RecordFunctionFast``), not a ``record_function`` user
+    annotation: the profiler copies user annotations onto the device
+    timeline, where readers that cannot tell the kinds apart (torch 2.11's
+    events carry no activity type) would count them as device work.
+    A span adds no synchronisation and no tensor operation."""
+    if not _recording:
+        return _NO_SPAN
+    return _Span(name, attrs)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to counter ``name`` under the root span now open (None
+    outside any span) while recording; nothing otherwise."""
+    if not _recording:
+        return
+    per = _root_counts.setdefault(_open[0].id if _open else None, {})
+    per[name] = per.get(name, 0) + n
+
+
+def start_recording():
+    """Clear the recorder and turn it on."""
+    global _recording
+    _spans.clear()
+    _root_counts.clear()
+    _recording = True
+
+
+def stop_recording():
+    """Turn the recorder off; what it recorded stays until the next
+    ``start_recording()``."""
+    global _recording
+    _recording = False
+
+
+def recorded() -> Recording:
+    """The spans closed and the counts made since ``start_recording()``
+    (copies; nothing is written anywhere)."""
+    counts = {}
+    for per in _root_counts.values():
+        for name, n in per.items():
+            counts[name] = counts.get(name, 0) + n
+    return Recording(list(_spans), counts,
+                     {k: dict(v) for k, v in _root_counts.items()})

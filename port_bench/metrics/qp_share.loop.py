@@ -1,0 +1,12 @@
+"""qp_share.loop (program span): the boxADMM solves (qp.solve spans) over
+the batch.solve root spans, in %, host time of the traced run's steps
+outside the profiled ones (layer: QP)."""
+from port_bench.pb import program_spans
+
+SOURCE = "program_span"
+program_spans.start()
+
+
+def read(ctx):
+    return program_spans.share(program_spans.reduce(), ("qp.solve",),
+                              ("batch.solve",))
