@@ -17,6 +17,12 @@ batch (``sample_lanes`` lanes drawn from the seed among all lanes of the
                      (the measure its SOLVED claim rests on) and the
                      reference's at the SQP's point, over the smaller of
                      the two (at least eps_viol).
+batch (every lane of the window, by the program's own certificate)
+  later_fail_excess  the share of the later batches' lanes that fail to
+                     certify less the audit batches' share, in percentage
+                     points (0 without a later batch): a run's ``failed``
+                     counts the audit batches alone, and this holds the
+                     rest of the window to them.
 loop (every step in the window)
   viol_gap_rel       as sqp_viol_gap_rel;
   cost_gap_rel       the largest gap between the SQP's reported objective
@@ -37,7 +43,8 @@ the precision below the configuration's: the certificate's residual in
 float32 (the configuration states float64), and the SQP's reported
 violation and objective with TF32 products (it states float32 with TF32
 off).  ``solved_stat_ratio`` reads no reported quantity, only the answer
-and its status, so the control leaves it as it is.
+and its status, and ``later_fail_excess`` only the certificate's count, so
+the control leaves both as they are.
 """
 from __future__ import annotations
 
@@ -91,6 +98,21 @@ def sample(units, count, seed):
                                               replace=False)))
 
 
+def _fail_share(units):
+    return 100.0 * sum(u["lanes"] - u["certified"] for u in units) / sum(
+        u["lanes"] for u in units)
+
+
+def fail_excess(units):
+    """Percentage points by which the failure share of the window's later
+    batches exceeds its audit batches' (0 without a later batch)."""
+    later = [u for u in units if not u["audit"]]
+    if not later:
+        return 0.0
+    return _fail_share(later) - _fail_share([u for u in units
+                                             if u["audit"]])
+
+
 def _gap(prog, ref, floor):
     """The largest gap between the program's reading and the reference's,
     over the smaller of the two in magnitude (at least ``floor``): a reading
@@ -141,7 +163,8 @@ def numbers(kind, units, nlp, cfg, device, control=False, pick=None):
         "cert_kkt_max": float(cert[certified].max()) if bool(
             certified.any()) else 0.0,
         "kkt_gap_rel": _gap(r, cert, tol),
-        "sqp_viol_gap_rel": viol_gap}
+        "sqp_viol_gap_rel": viol_gap,
+        "later_fail_excess": fail_excess(units)}
 
 
 def judge(nums, limits, failed_steps=None):

@@ -127,8 +127,9 @@ def run_cell(workload, seed, seconds, trace, device="cuda",
         if value is not None and _finite(float(value)) is not None:
             metrics[m["name"]] = {"value": float(value), "unit": m["unit"]}
     if kind == "batch":
-        attempted = sum(u["lanes"] for u in units)
-        failed = attempted - sum(u["certified"] for u in units)
+        audit = [u for u in units if u["audit"]]
+        attempted = sum(u["lanes"] for u in audit)
+        failed = attempted - sum(u["certified"] for u in audit)
     else:
         attempted, failed = len(units), failed_steps
     dev = {"platform": "gpu" if cuda else torch.device(device).type,

@@ -5,7 +5,8 @@ A cell (``workloads`` entry) names a configuration and a traffic mix:
   configuration  ``configs[].file`` (its JSON), the loader beside it (the
                  same path ending in ``.py``) and its plain reference
                  ``port_bench/reference/<config>.py``;
-  traffic        ``port_bench/traffic/<traffic>.json``;
+  traffic        ``port_bench/traffic/<traffic>.json``, with the
+                 parameters its kind reads (``TRAFFIC_KEYS``);
   limits         ``port_bench/limits/<workload>.json``: the limit of each
                  number the check compares;
   metrics        ``port_bench/metrics/<metric>.py``, one reader per
@@ -20,6 +21,9 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
 ROOT = HERE.parent
+TRAFFIC_KEYS = {"batch": {"batch", "audit_batches", "sample_lanes",
+                          "trace_units"},
+                "loop": {"dt", "substeps", "warmup_steps", "trace_units"}}
 
 
 def load_module(path: Path, name: str):
@@ -46,6 +50,13 @@ class Cell:
         self.cfg = json.loads(self.config_path.read_text())
         self.traffic_path = HERE / "traffic" / f"{self.entry['traffic']}.json"
         self.traffic = json.loads(self.traffic_path.read_text())
+        missing = TRAFFIC_KEYS[self.traffic["kind"]] - set(self.traffic)
+        if missing:
+            raise ValueError(f"traffic {self.entry['traffic']!r} lacks "
+                             f"{sorted(missing)}")
+        if self.traffic["kind"] == "batch" and \
+                int(self.traffic["audit_batches"]) < 1:
+            raise ValueError("a batch traffic needs one audit batch or more")
         self.limits_path = HERE / "limits" / f"{workload}.json"
         self.chips = int(self.entry["chips"])
 

@@ -5,7 +5,11 @@ program's problem with it.
 ``batch`` lanes, each drawn afresh from the ``--seed`` stream with the
 configuration's draw, solved by the program's batch solver and certified
 under the configuration's schedule.  A unit is one batch; a lane that does
-not certify fails.
+not certify fails.  The first ``audit_batches`` batches of a window are its
+audit batches, and the window ends once ``seconds`` have passed and every
+audit batch is done: a run's attempted and failed lanes are theirs alone,
+so two programs run on one seed are judged on the same lanes however many
+batches each finishes.
 
 ``loop`` (a controller in a closed loop): from one fixed start state (the
 configuration's draw from a fixed stream, the same for every seed), each
@@ -81,6 +85,7 @@ class BatchTraffic:
         self.p, self.cfgmod, self.cfg, self.t = problem, cfgmod, cfg, traffic
         self.device = device
         self.B = int(traffic["batch"])
+        self.audit = int(traffic["audit_batches"])
         self.tol = float(cfg["certify"]["tol"])
 
     def _unit(self, x0s, spans):
@@ -98,12 +103,14 @@ class BatchTraffic:
         self._unit(x0, Spans(False, self.device))
 
     def run(self, seed, seconds, spans, profiled):
-        """Batches until ``seconds`` have passed; returns (units, window_s).
-        ``profiled`` wraps the first units of a traced run."""
+        """Batches until ``seconds`` have passed and the audit batches are
+        done; returns (units, window_s).  ``profiled`` wraps the first
+        units of a traced run."""
         rng = np.random.default_rng(seed)
         units = []
         t_start = time.perf_counter()
         while True:
+            audit = len(units) < self.audit
             x0s = torch.as_tensor(self.cfgmod.draw(self.cfg, rng, self.B),
                                   device=self.device)
             with profiled(len(units)):
@@ -118,11 +125,12 @@ class BatchTraffic:
                      sol.violation, z, lam, lam_box, r)))
             iters, qp_iters = _cpu(sol.iters, sol.qp_iters)
             units.append({
-                "wall_s": t1 - t0, "lanes": self.B,
+                "wall_s": t1 - t0, "lanes": self.B, "audit": audit,
                 "certified": int(ok.sum()), "iters": iters.numpy(),
                 "qp_iters": qp_iters.numpy(), "spans": spans.take(),
                 "record": rec})
-            if time.perf_counter() - t_start >= seconds:
+            if len(units) >= self.audit and \
+                    time.perf_counter() - t_start >= seconds:
                 break
         return units, time.perf_counter() - t_start
 

@@ -23,7 +23,8 @@ import port_bench.pb.certify as certify_mod
 from port_bench.pb.runner import run_cell
 from port_bench.pb.spec import Cell
 
-CELLS = {"kite_b4096": ({"batch": 6, "sample_lanes": 6}, 0.0),
+CELLS = {"kite_b4096": ({"batch": 6, "sample_lanes": 6, "audit_batches": 1},
+                        0.0),
          "race_car_loop_b1": ({"warmup_steps": 1}, 2.0)}
 BATCH = ("kite_b4096",)
 # the cost weight each configuration's fault doubles: its path in cfg

@@ -105,7 +105,8 @@ def test_check_passes_a_converged_solve_and_flags_a_perturbed_one():
     from port_bench.pb.runner import compared, prepare
     from port_bench.pb.spec import Cell
     cell = Cell("kite_b4096", ROOT)
-    traffic, refnlp, drv = prepare(cell, "cpu", {"batch": 4})
+    traffic, refnlp, drv = prepare(cell, "cpu", {"batch": 4,
+                                                  "audit_batches": 1})
     from port_bench.pb.traffic import Spans
     import contextlib
     units, _ = drv.run(7, 0.0, Spans(False, "cpu"),

@@ -104,7 +104,8 @@ def test_every_file_of_a_cell_resolves_by_name(cell):
     for m in c.end_to_end() + c.per_layer():
         assert Cell.metric_path(m["name"]).is_file()
         assert callable(c.metric_module(m["name"]).read)
-    keys = {"batch": {"cert_kkt_max", "kkt_gap_rel", "sqp_viol_gap_rel"},
+    keys = {"batch": {"cert_kkt_max", "kkt_gap_rel", "sqp_viol_gap_rel",
+                      "later_fail_excess"},
             "loop": {"viol_gap_rel", "cost_gap_rel",
                      "solved_stat_ratio"}}[c.traffic["kind"]]
     assert set(c.limits()) == keys
@@ -118,3 +119,15 @@ def test_the_configurations_match_their_entries():
         assert cfg["source"] == c["source"]
     files = [c["file"] for c in BENCH["configs"]]
     assert len(files) == len(set(files))
+
+
+def test_a_batch_traffic_without_audit_batches_is_refused(tmp_path,
+                                                          monkeypatch):
+    from port_bench.pb import spec
+    t = json.loads((HERE / "traffic" / "batch_b4096.json").read_text())
+    del t["audit_batches"]
+    (tmp_path / "traffic").mkdir()
+    (tmp_path / "traffic" / "batch_b4096.json").write_text(json.dumps(t))
+    monkeypatch.setattr(spec, "HERE", tmp_path)
+    with pytest.raises(ValueError, match="audit_batches"):
+        spec.Cell("kite_b4096", ROOT)
