@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from polympc_torch.nlp.sqp import (_constraints, derivative_fns,
+from polympc_torch.nlp.sqp import (constraints_fn, derivative_fns,
                                    exact_hessian_fn)
 from polympc_torch.nlp.types import NLP, NLPBounds
 from polympc_torch.ops.ldlt import ldlt_factor_solve, ldlt_solve
@@ -49,7 +49,7 @@ def _mv(A, v):
 
 def _eval_parts(nlp: NLP, z, p):
     grad_fn, jac_fn = derivative_fns(nlp, p)
-    return grad_fn(z), _constraints(nlp, z, p), jac_fn(z)
+    return grad_fn(z), constraints_fn(nlp, p)(z), jac_fn(z)
 
 
 def _row_bounds(nlp: NLP, bounds: NLPBounds, B, dt):
@@ -259,7 +259,7 @@ def _refine(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p, iters,
     p_md = p64 if md == f64 else _cast_params(p, md)
     cl, cu, lbx, ubx = _lane_bounds(nlp, bounds, B, f64)
     grad_fn, jac_fn = derivative_fns(nlp, p64)
-
+    con_fn = constraints_fn(nlp, p64)
     hess = _hessian_fn(nlp, p_md, md)
 
     def residual_of(z, lam, lam_box, g, c, J):
@@ -268,7 +268,7 @@ def _refine(nlp: NLP, z, lam, lam_box, bounds: NLPBounds, p, iters,
 
     def derivatives(z):
         with span("refine.derivatives"):
-            return grad_fn(z), _constraints(nlp, z, p64), jac_fn(z)
+            return grad_fn(z), con_fn(z), jac_fn(z)
 
     cur = (z, lam, lam_box, *derivatives(z))
     best = (z, lam, lam_box)

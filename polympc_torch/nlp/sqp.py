@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 from torch.func import grad, jacrev, vmap
 
+from polympc_torch.nlp import graphed
 from polympc_torch.nlp.hessian import (
     BlockHessian, assemble_block_hessian, bfgs_update, block_bfgs_update,
     block_hessian_identity, regularize, sr1_update,
@@ -68,39 +69,55 @@ def _lane(fn):
     return lambda xi, *a: fn(xi[None], *(v[None] for v in a))[0]
 
 
-def derivative_fns(nlp: NLP, p):
-    """(grad, jac) callables on (B, n): the NLP's structured hooks where it
-    has them, per-lane ``torch.func`` otherwise."""
+def _grad(nlp: NLP, x, p):
     if nlp.cost_grad is not None:
-        grad_fn = lambda x: nlp.cost_grad(x, p)
-    else:
-        grad_fn = vmap(grad(_lane(lambda x: nlp.cost(x, p))))
-
-    def jac_fn(x):
-        parts = []
-        if nlp.eq is not None:
-            parts.append(nlp.eq_jac(x, p) if nlp.eq_jac is not None else
-                         vmap(jacrev(_lane(lambda v: nlp.eq(v, p))))(x))
-        if nlp.ineq is not None:
-            parts.append(nlp.ineq_jac(x, p) if nlp.ineq_jac is not None else
-                         vmap(jacrev(_lane(lambda v: nlp.ineq(v, p))))(x))
-        return torch.cat(parts, dim=1) if parts else x.new_zeros(
-            (x.shape[0], 0, nlp.n))
-    return grad_fn, jac_fn
+        return nlp.cost_grad(x, p)
+    return vmap(grad(_lane(lambda v: nlp.cost(v, p))))(x)
 
 
-def exact_hessian_fn(nlp: NLP, p):
-    """The exact Lagrangian Hessian (x (B, n), lam (B, m)) -> (B, n, n):
-    the NLP's hook where it has one, per-lane ``torch.func`` otherwise."""
+def _jac(nlp: NLP, x, p):
+    parts = []
+    if nlp.eq is not None:
+        parts.append(nlp.eq_jac(x, p) if nlp.eq_jac is not None else
+                     vmap(jacrev(_lane(lambda v: nlp.eq(v, p))))(x))
+    if nlp.ineq is not None:
+        parts.append(nlp.ineq_jac(x, p) if nlp.ineq_jac is not None else
+                     vmap(jacrev(_lane(lambda v: nlp.ineq(v, p))))(x))
+    return torch.cat(parts, dim=1) if parts else x.new_zeros(
+        (x.shape[0], 0, nlp.n))
+
+
+def _lag_hessian(nlp: NLP, x, lam, p):
     if nlp.lag_hessian is not None:
-        return lambda x, lam: nlp.lag_hessian(x, lam, p)
+        return nlp.lag_hessian(x, lam, p)
 
     def lagr(xi, li):
         val = nlp.cost(xi[None], p)[0]
         if nlp.m:
             val = val + _constraints(nlp, xi[None], p)[0] @ li
         return val
-    return vmap(jacrev(grad(lagr)))
+    return vmap(jacrev(grad(lagr)))(x, lam)
+
+
+def derivative_fns(nlp: NLP, p):
+    """(grad, jac) callables on (B, n): the NLP's structured hooks where it
+    has them, per-lane ``torch.func`` otherwise; on a card replayed as
+    CUDA graphs (nlp/graphed.py)."""
+    return (lambda x: graphed.call(_grad, nlp, x, p),
+            lambda x: graphed.call(_jac, nlp, x, p))
+
+
+def constraints_fn(nlp: NLP, p):
+    """The stacked constraints c(x) (B, m) as :func:`derivative_fns`
+    evaluates them: on a card replayed as CUDA graphs."""
+    return lambda x: graphed.call(_constraints, nlp, x, p)
+
+
+def exact_hessian_fn(nlp: NLP, p):
+    """The exact Lagrangian Hessian (x (B, n), lam (B, m)) -> (B, n, n):
+    the NLP's hook where it has one, per-lane ``torch.func`` otherwise; on
+    a card replayed as CUDA graphs (nlp/graphed.py)."""
+    return lambda x, lam: graphed.call(_lag_hessian, nlp, x, lam, p)
 
 
 def _box_bounds(nlp: NLP, bounds: NLPBounds | None, B, n, dt, dev):
@@ -200,6 +217,7 @@ def _sqp_solve(nlp: NLP, x0, p, bounds, lam0, lam_box0,
     cost_fn = lambda x: nlp.cost(x, p)
     con_fn = lambda x: _constraints(nlp, x, p)
     grad_fn, jac_fn = derivative_fns(nlp, p)
+    con_at = constraints_fn(nlp, p)
     mode = settings.hessian
     if mode == "gauss_newton":
         if nlp.gn_hessian is None:
@@ -314,7 +332,7 @@ def _sqp_solve(nlp: NLP, x0, p, bounds, lam0, lam_box0,
         lam_box2 = lam_box + alpha[:, None] * (lam_box_qp - lam_box)
         with span("sqp.derivatives"):
             g2 = grad_fn(x2)
-            c2 = con_fn(x2)
+            c2 = con_at(x2)
             A2 = jac_fn(x2)
         f2 = torch.where(any_fin, f_sel, f0)
         At = A2.transpose(1, 2)
@@ -357,7 +375,7 @@ def _sqp_solve(nlp: NLP, x0, p, bounds, lam0, lam_box0,
 
     x0 = torch.clamp(x0.to(dt), min=lbx, max=ubx)
     with span("sqp.derivatives"):
-        derivs = {"g": grad_fn(x0), "c": con_fn(x0), "A": jac_fn(x0),
+        derivs = {"g": grad_fn(x0), "c": con_at(x0), "A": jac_fn(x0),
                   "f": cost_fn(x0)}
     inf = torch.full((B,), float("inf"), dtype=dt, device=dev)
     S = {"x": x0,

@@ -741,3 +741,73 @@ def test_long_horizon_on_the_card(dev):
     np.testing.assert_allclose(Zc.cpu().numpy(), Zh.numpy(), rtol=0,
                                atol=1e-8)
     assert hc[-1]["defect"].max() <= 1e-7
+
+
+def _derivative_case(name, dev, dtype):
+    """The kite's (n=77, m=55) or the race car's (n=99, m=66)
+    transcription, its parameters and a state to start the guess from."""
+    if name == "kite":
+        from polympc_torch.headline import bench_x0s
+        tr, _, prm, _ = kite_problem(dev, dtype)
+        return tr, prm, torch.as_tensor(bench_x0s(1)[0])
+    from polympc_torch.headline_table import RACE_X0, race_car_problem
+    tr, _, prm, _, _ = race_car_problem(dev, dtype)
+    return tr, prm, torch.as_tensor(RACE_X0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [4096, 1, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["kite", "race_car"])
+def test_replayed_derivatives_equal_eager_bit_for_bit(name, dtype, B, dev):
+    """The gradient, constraints, Jacobian and Lagrangian Hessian replayed
+    from CUDA graphs (nlp/graphed.py) equal eager bit for bit, at the
+    main path's batch, at one lane and at an odd tail, in the SQP's float32
+    and the certify's float64: each key is called at four points (eager,
+    capture, replay, replay), every answer is compared with eager only
+    after the last call (so a held answer survives the replays after it),
+    then once more with a parameter changed between two replays.  The
+    first sight is each evaluation's first call in the test, eager on the
+    calling thread as every later one (a Hessian's outer reverse pass
+    would otherwise take its order from the process's history)."""
+    from polympc_torch.nlp import graphed, sqp
+    from polympc_torch.utils import timing as tm
+    from polympc_torch.utils.precision import full_precision
+    tr, prm, x0 = _derivative_case(name, dev, dtype)
+    nlp = tr.nlp
+    assert (nlp.n, nlp.m) == {"kite": (77, 55), "race_car": (99, 66)}[name]
+    gen = torch.Generator(device=dev).manual_seed(B)
+    base = tr.initial_guess(x0, dtype=dtype, device=dev)[None]
+
+    def point():
+        return (base + 0.01 * torch.randn(B, nlp.n, generator=gen,
+                                          dtype=dtype, device=dev),
+                torch.randn(B, nlp.m, generator=gen, dtype=dtype,
+                            device=dev))
+    evals = [(sqp._grad, lambda x, lam, p: (nlp, x, p)),
+             (sqp._constraints, lambda x, lam, p: (nlp, x, p)),
+             (sqp._jac, lambda x, lam, p: (nlp, x, p)),
+             (sqp._lag_hessian, lambda x, lam, p: (nlp, x, lam, p))]
+    moved = dict(prm, tf=prm["tf"] * 1.25)
+    graphed.clear()
+    tm.start_recording()
+    try:
+        with full_precision():
+            for fn, args in evals:
+                pts = [point() for _ in range(4)]
+                outs = [graphed.call(fn, *args(x, lam, prm))
+                        for x, lam in pts]
+                x, lam = pts[-1]
+                out = graphed.call(fn, *args(x, lam, moved))
+                for (x, lam), got in zip(pts, outs):
+                    assert torch.equal(got, graphed._eager(
+                        fn, args(x, lam, prm))), fn
+                assert torch.equal(out, graphed._eager(
+                    fn, args(x, lam, moved))), fn
+                assert not torch.equal(out, outs[-1]), fn
+    finally:
+        tm.stop_recording()
+        graphed.clear()
+    assert tm.recorded().counts == {"derivatives.eager": 4,
+                                    "derivatives.capture": 4,
+                                    "derivatives.replay": 12}
